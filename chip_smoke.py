@@ -1,0 +1,302 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (yolo_for_turbines_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+  env     torch / CUDA versions and the card's name and power limit;
+  build   nvcc build of csrc/*.cu (sm_90a) into the git-ignored _build/;
+  k1      fused greedy NMS against its plain torch version, B in {1, 8, 128}:
+          keep masks must be equal; CUDA-event times at B = 1 and 128;
+  k2      fused residual block against its plain torch version in bf16 at the
+          five Darknet-53 residual geometries (leaky and mish); times of the
+          26x26x512 stage at B = 8 and 128;
+  main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
+          predict_images, predict_image, predict_batch at B = 8 and 128;
+          both kernels must launch, outputs must be finite and well shaped,
+          and raw heads must agree with an f32 CPU forward of the same weights.
+Then the kernel table as one JSON line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure raises (non-zero exit).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+K = 256
+N_CAND = 10647  # candidates per image at 416px: 3 * (13^2 + 26^2 + 52^2)
+# (H = W, C, blocks) of the Darknet-53 residual stages at 416px
+GEOMETRIES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
+# K2 tolerance: max |kernel - plain| <= K2_TOL * max |plain|. Both round mid
+# and each block's output to bf16 (2^-8 relative spacing) after f32 sums taken
+# in different orders, so single elements may differ by one bf16 step and the
+# difference propagates through up to 8 chained blocks; 2^-5 allows a few
+# steps at the top of the range while an indexing fault gives O(1) errors.
+K2_TOL = 2.0 ** -5
+# Raw-head tolerance of the bf16 card forward against the f32 CPU forward:
+# relative RMS error per head. About 75 layers each round activations to bf16
+# (2^-9 relative), which compounds to a few percent at the heads.
+HEAD_RTOL = 0.05
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ab_ms(kernel_fn, plain_fn, iters: int, plain_iters: int):
+    """Times in turns (plain, kernel, kernel, plain) within one process."""
+    p1 = cuda_ms(plain_fn, plain_iters)
+    k1 = cuda_ms(kernel_fn, iters)
+    k2 = cuda_ms(kernel_fn, iters)
+    p2 = cuda_ms(plain_fn, plain_iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nms_inputs(batch: int, gen: torch.Generator, dev):
+    from yolo_for_turbines_tpu_torch.ops.nms import _top_k_candidates
+
+    boxes = torch.zeros(batch, N_CAND, 6)
+    boxes[..., 0:2] = torch.rand(batch, N_CAND, 2, generator=gen) * 0.6 + 0.2
+    boxes[..., 2:4] = torch.rand(batch, N_CAND, 2, generator=gen) * 0.35 + 0.05
+    # distinct scores: a permutation of evenly spaced values
+    boxes[..., 4] = torch.randperm(batch * N_CAND, generator=gen).reshape(
+        batch, N_CAND).float() / (batch * N_CAND)
+    boxes[..., 5] = torch.randint(0, 3, (batch, N_CAND), generator=gen).float()
+    return _top_k_candidates(boxes.to(dev), 0.3, K)
+
+
+def phase_k1(dev, gen):
+    from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel as nk
+
+    out = {"phase": "k1", "kernel": "greedy_nms", "K": K, "N": N_CAND}
+    for batch in (1, 8, 128):
+        cand, valid = nms_inputs(batch, gen, dev)
+        got = nk.greedy_nms(cand, valid, 0.45)
+        torch.cuda.synchronize()
+        want = nk.greedy_nms_reference(cand, valid, 0.45)
+        mismatches = int((got != want).sum())
+        out[f"B{batch}_kept"] = int(got.sum())
+        out[f"B{batch}_mismatches"] = mismatches
+        if mismatches:
+            emit(out)
+            raise AssertionError(f"K1 keep mask differs from plain at B={batch}")
+        if batch in (1, 128):
+            ms, plain_ms = ab_ms(
+                lambda: nk.greedy_nms(cand, valid, 0.45),
+                lambda: nk.greedy_nms_reference(cand, valid, 0.45),
+                iters=50, plain_iters=3,
+            )
+            out[f"B{batch}_ms"], out[f"B{batch}_plain_ms"] = ms, plain_ms
+    emit(out)
+    return {"max_abs_err": 0.0, "ms": out["B128_ms"], "plain_ms": out["B128_plain_ms"]}
+
+
+def stage_inputs(batch, hw, c, n, gen, dev):
+    ch = c // 2
+    x = torch.randn(batch, hw, hw, c, generator=gen).to(dev, torch.bfloat16)
+    w1 = (torch.randn(n, c, ch, generator=gen) / c ** 0.5).to(dev, torch.bfloat16)
+    b1 = (0.1 * torch.randn(n, ch, generator=gen)).to(dev)
+    w2 = (0.5 * torch.randn(n, 3, 3, ch, c, generator=gen) / (9 * ch) ** 0.5).to(
+        dev, torch.bfloat16)
+    b2 = (0.1 * torch.randn(n, c, generator=gen)).to(dev)
+    return x, w1, b1, w2, b2
+
+
+def layer_path(x, w1, b1, w2, b2, activation):
+    """The model's unfused bf16 path for the same stage (cuDNN convs,
+    channels_last), for scale beside the two times."""
+    import torch.nn.functional as F
+
+    from yolo_for_turbines_tpu_torch.models.blocks import get_activation
+
+    act = get_activation(activation)
+    x = x.permute(0, 3, 1, 2)
+    for i in range(w1.shape[0]):
+        wa = w1[i].t()[:, :, None, None].contiguous(memory_format=torch.channels_last)
+        wb = w2[i].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = act(F.conv2d(x, wa, b1[i].to(x.dtype)))
+        y = act(F.conv2d(y, wb, b2[i].to(x.dtype), padding=1))
+        x = x + y
+    return x
+
+
+def phase_k2(dev, gen):
+    from yolo_for_turbines_tpu_torch.ops.kernels import resblock_kernel as rk
+
+    out = {"phase": "k2", "kernel": "fused_residual_stage", "tol_rel_to_max": K2_TOL,
+           "checks": []}
+    worst = 0.0
+    cases = [(g, 2) for g in GEOMETRIES] + [((26, 512, 8), 8)]
+    for activation in ("leaky_relu", "mish"):
+        for (hw, c, n), batch in cases:
+            args = stage_inputs(batch, hw, c, n, gen, dev)
+            got = rk.fused_residual_stage(*args, activation=activation)
+            torch.cuda.synchronize()
+            want = rk.fused_residual_stage_reference(*args, activation=activation)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            out["checks"].append({"act": activation, "hw": hw, "c": c, "n": n, "B": batch,
+                                  "max_abs_err": err, "ref_max": scale})
+            worst = max(worst, err)
+            if not err <= K2_TOL * scale:
+                emit(out)
+                raise AssertionError(f"K2 differs from plain: {out['checks'][-1]}")
+    for batch in (8, 128):
+        args = stage_inputs(batch, 26, 512, 8, gen, dev)
+        ms, plain_ms = ab_ms(
+            lambda: rk.fused_residual_stage(*args, activation="leaky_relu"),
+            lambda: rk.fused_residual_stage_reference(*args, activation="leaky_relu"),
+            iters=10, plain_iters=3,
+        )
+        out[f"26x26x512_B{batch}_ms"] = ms
+        out[f"26x26x512_B{batch}_plain_ms"] = plain_ms
+        out[f"26x26x512_B{batch}_bf16_layers_ms"] = cuda_ms(
+            lambda: layer_path(*args, "leaky_relu"), 10)
+    emit(out)
+    return {"max_abs_err": worst, "ms": out["26x26x512_B128_ms"],
+            "plain_ms": out["26x26x512_B128_plain_ms"]}
+
+
+def phase_main(dev):
+    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+    from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel, resblock_kernel
+
+    model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
+    plan = build_plan(model_cfg)
+    tree = init_plan(plan, torch.Generator().manual_seed(SEED))
+    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev)
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((480, 640), (300, 500), (416, 416), (720, 400))]
+    batches = {b: torch.from_numpy(rng.uniform(size=(b, 416, 416, 3)).astype(np.float32)).to(dev)
+               for b in (8, 128)}
+    out = {"phase": "main", "model": "darknet53 yolov3, 80 classes, 416px, bf16"}
+
+    nms_kernel.launches = 0
+    resblock_kernel.launches = 0
+    results = pred.predict_images(images)
+    single = pred.predict_image(images[0])
+    for b, x in batches.items():
+        kept, mask = pred.predict_batch(x)
+        torch.cuda.synchronize()
+        require(kept.shape == (b, K, 6) and mask.shape == (b, K),
+                f"predict_batch shapes {tuple(kept.shape)} {tuple(mask.shape)}")
+        require(mask.dtype == torch.bool and bool(torch.isfinite(kept).all()),
+                "predict_batch mask not bool or boxes not finite")
+        iters = 20 if b == 8 else 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pred.predict_batch(x)
+        torch.cuda.synchronize()
+        out[f"B{b}_images_per_s"] = b * iters / (time.perf_counter() - t0)
+    launches = {"greedy_nms": nms_kernel.launches,
+                "fused_residual_stage": resblock_kernel.launches}
+    out["launches"] = launches
+
+    require(len(results) == len(images), "predict_images lost images")
+    for boxes in results + [single]:
+        for row in boxes:
+            require(len(row) == 6 and all(np.isfinite(row)), f"bad box row {row}")
+    out["boxes_per_image"] = [len(r) for r in results]
+    if not all(launches.values()):
+        emit(out)
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+
+    # raw heads of one image: bf16 on the card vs f32 on the CPU, same weights
+    x1 = batches[8][:1]
+    with torch.inference_mode():
+        dev_heads = pred.model(x1)
+        cpu_model = folded_from_numpy(plan, tree, model_cfg).eval()
+        cpu_heads = cpu_model(x1.cpu())
+    errs = []
+    for d, c in zip(dev_heads, cpu_heads):
+        d = d.float().cpu()
+        require(d.shape == c.shape and bool(torch.isfinite(d).all()),
+                "raw heads of the card not finite or misshapen")
+        errs.append(((d - c).norm() / c.norm()).item())
+    out["head_rel_rms_err"] = errs
+    out["head_max_abs_err"] = max((d.float().cpu() - c).abs().max().item()
+                                  for d, c in zip(dev_heads, cpu_heads))
+    emit(out)
+    if not max(errs) <= HEAD_RTOL:
+        raise AssertionError(f"raw heads differ from the f32 CPU forward: {errs}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    gpu = gpu_line()
+    emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda, "gpu": gpu,
+          "device_count": torch.cuda.device_count()})
+
+    t0 = time.perf_counter()
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds,
+          "load_seconds": time.perf_counter() - t0, "library": str(kernels.LIBRARY)})
+
+    # the plain versions are exact f32 references: no TF32 anywhere
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED)
+    k1 = phase_k1(dev, gen)
+    k2 = phase_k2(dev, gen)
+    launches = phase_main(dev)
+
+    emit({"kernels": [
+        {"name": "greedy_nms", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/nms.cu",
+         "replaces": "yolo_for_turbines_tpu/ops/pallas/nms_kernel.py:78",
+         "launches": launches["greedy_nms"], **k1},
+        {"name": "fused_residual_stage", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/resblock.cu",
+         "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py:100",
+         "launches": launches["fused_residual_stage"], **k2},
+    ]})
+    print(gpu, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Torch port: importing and serving with it leaves jax unimported.
+
+Runs in a subprocess because this test process has jax loaded already
+(tests/conftest.py).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+
+import yolo_for_turbines_tpu_torch
+from yolo_for_turbines_tpu.config import ModelConfig
+from yolo_for_turbines_tpu_torch import inference, serving
+from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+
+sys.path.insert(0, "tests")
+from helpers import MINI_LAYERS  # plain data, no jax
+
+cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+plan = build_plan(cfg)
+model = folded_from_numpy(plan, init_plan(plan, torch.Generator().manual_seed(0)), cfg)
+pred = inference.Predictor(model, device="cpu", image_size=64, max_boxes=8)
+x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+kept, mask = pred.predict_batch(x)
+assert tuple(kept.shape) == (2, 8, 6) and mask.dtype == torch.bool
+assert bool(torch.isfinite(kept).all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_imports_and_serves_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

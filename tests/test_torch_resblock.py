@@ -1,0 +1,129 @@
+"""Torch port: fused residual stage (kernel K2's plain version and router)
+against the JAX Pallas kernel run in interpret mode.
+
+The shapes are those of tests/test_resblock_kernel.py. Everything is f32 on
+the CPU; atol=1e-5, rtol=1e-4 because the two sum the 1x1 and the nine 3x3
+taps in different orders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolo_for_turbines_tpu.ops.pallas.resblock_kernel import (
+    fused_residual_stage as jax_fused_residual_stage,
+    stack_block_params as jax_stack_block_params,
+)
+from yolo_for_turbines_tpu_torch.models.yolov3 import PlanResidual, ResidualStage
+from yolo_for_turbines_tpu_torch.models.blocks import get_activation
+from yolo_for_turbines_tpu_torch.ops.kernels import resblock_kernel as rk
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _make_stage(n, c, seed=0):
+    # the 1x1 weights are scaled to unit gain (unlike the JAX kernel test) so
+    # activations stay O(1) over the chained blocks and an f32 tolerance
+    # means the same thing at every block
+    ch = c // 2
+    return (
+        _rand((n, 1, 1, c, ch), seed) / np.sqrt(c),
+        _rand((n, ch), seed + 1) * 0.1,
+        _rand((n, 3, 3, ch, c), seed + 2) * 0.2,
+        _rand((n, c), seed + 3) * 0.1,
+    )
+
+
+def _both(x, params, chunk, activation):
+    want = jax_fused_residual_stage(
+        jnp.asarray(x), *map(jnp.asarray, params), chunk=chunk,
+        activation=activation, interpret=True,
+    )
+    got = rk.fused_residual_stage(
+        torch.from_numpy(x), *map(torch.from_numpy, params), activation=activation
+    )
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_stage_matches_jax_kernel(chunk):
+    x = _rand((2, 6, 10, 16), 9)
+    got, want = _both(x, _make_stage(4, 16), chunk, "leaky_relu")
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_stage_mish_matches_jax_kernel():
+    x = _rand((1, 5, 7, 8), 3)
+    got, want = _both(x, _make_stage(2, 8, seed=11), 2, "mish")
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_stage_rejects_unsupported_device():
+    # only CPU tensors take the plain version; anything else is the kernel's
+    # or an error, never a silent fallback
+    params = [torch.from_numpy(p).to("meta") for p in _make_stage(1, 64)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        rk.fused_residual_stage(torch.zeros(1, 4, 4, 64, device="meta"), *params)
+
+
+def test_stage_leaves_input_unchanged():
+    x = torch.from_numpy(_rand((1, 4, 4, 16), 1))
+    before = x.clone()
+    rk.fused_residual_stage(x, *map(torch.from_numpy, _make_stage(2, 16)))
+    assert torch.equal(x, before)
+
+
+@pytest.mark.parametrize(
+    "h,c,wins",
+    [(208, 64, False), (104, 128, False), (52, 256, False), (26, 512, True),
+     (13, 1024, False)],
+)
+def test_router_gate_on_darknet53_geometries(h, c, wins):
+    # only the 26x26x512 stage at 416px takes the fused kernel, at any batch
+    assert rk.stage_wins(h, h, c) is wins
+    x = torch.zeros(1, h, h, c) if not wins else None
+    if x is not None:
+        assert rk.apply_residual_stage_fused(None, x, "leaky_relu") is None
+
+
+def test_stack_block_params_matches_jax_layout():
+    n, c = 3, 16
+    w1s, b1s, w2s, b2s = _make_stage(n, c, seed=4)
+    blocks_hwio = [
+        {"conv1": {"w": w1s[i], "b": b1s[i]}, "conv2": {"w": w2s[i], "b": b2s[i]}}
+        for i in range(n)
+    ]
+    blocks_oihw = [
+        {k: {"w": torch.from_numpy(np.ascontiguousarray(np.transpose(bp[k]["w"], (3, 2, 0, 1)))),
+             "b": torch.from_numpy(bp[k]["b"])} for k in ("conv1", "conv2")}
+        for bp in blocks_hwio
+    ]
+    want = jax_stack_block_params(blocks_hwio)
+    got = rk.stack_block_params(blocks_oihw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]).reshape(n, c, c // 2))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("activation", ["leaky_relu", "mish"])
+def test_model_stage_fused_route_matches_layers(activation):
+    # smallest geometry the router takes (16x16x512): fused and layer-by-layer
+    # paths of the module agree
+    torch.manual_seed(0)
+    stage = ResidualStage(PlanResidual(channels=512, num_blocks=1))
+    with torch.no_grad():
+        for blk in stage.blocks:
+            for conv in blk.values():
+                conv.weight.normal_(0, conv.weight[0].numel() ** -0.5)
+                conv.bias.normal_(0, 0.1)
+    x = torch.randn(1, 512, 16, 16)
+    act = get_activation(activation)
+    with torch.inference_mode():
+        fused = stage(x, act, activation, fuse=True)
+        layers = stage(x, act, activation, fuse=False)
+    np.testing.assert_allclose(fused.numpy(), layers.numpy(), rtol=RTOL, atol=ATOL)

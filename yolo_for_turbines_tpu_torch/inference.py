@@ -1,0 +1,127 @@
+"""Serving pipeline: letterbox -> folded forward -> decode -> NMS.
+
+Counterpart of ``yolo_for_turbines_tpu/inference.py``. ``predict_batch``
+runs the folded-BN forward with raw heads, the three-scale decode and the
+fixed-shape class-aware NMS on the predictor's device and returns the K
+survivors per image; ``predict_images`` and ``predict_image`` wrap it with
+letterbox and un-letterbox. On CUDA the 26x26x512 residual stage runs the
+fused kernel (``ops/kernels/resblock_kernel.py``) and NMS runs the fused
+greedy kernel (``ops/kernels/nms_kernel.py``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from yolo_for_turbines_tpu import config as cfg
+from yolo_for_turbines_tpu.config import ModelConfig
+
+from .data.augment import letterbox, unletterbox_boxes
+from .models.convert import folded_from_numpy
+from .models.yolov3 import FoldedYOLOv3, build_plan
+from .ops.decode import decode_raw_all
+from .ops.nms import batched_nms, nms_to_list
+
+
+def _letterbox_batch(np_images: List[np.ndarray], size: int, num_threads: int) -> np.ndarray:
+    """(N, size, size, 3) float32 in [0, 1]: the C++ packer of the JAX
+    package's ``native`` module when it builds here, else numpy + PIL."""
+    from yolo_for_turbines_tpu import native
+
+    if native.load_library() is not None:
+        return native.batch_letterbox(
+            np_images, size, num_threads=num_threads, reuse_buffer=True
+        )
+    out = np.empty((len(np_images), size, size, 3), np.float32)
+    for i, img in enumerate(np_images):
+        lb, _ = letterbox(np.ascontiguousarray(img), None, size)
+        out[i] = lb.astype(np.float32) / 255.0
+    return out
+
+
+class Predictor:
+    """A folded model on a device plus the serving knobs.
+
+    ``compute_dtype`` defaults to bf16 on CUDA and float32 on the CPU.
+    """
+
+    def __init__(
+        self,
+        model: FoldedYOLOv3,
+        *,
+        device,
+        anchors=cfg.ANCHORS,
+        image_size: int = cfg.DEF_IMAGE_SIZE,
+        conf_threshold: float = cfg.CONF_THRESHOLD,
+        nms_iou_threshold: float = cfg.NMS_IOU_THRESHOLD,
+        max_boxes: int = 256,
+        compute_dtype=None,
+    ):
+        self.device = torch.device(device)
+        if compute_dtype is None:
+            compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        self.compute_dtype = compute_dtype
+        # pre-cast weights once; channels_last keeps activations NHWC in memory
+        self.model = model.to(
+            device=self.device, dtype=compute_dtype, memory_format=torch.channels_last
+        ).eval()
+        self.anchors = np.asarray(anchors, np.float32)
+        self.image_size = image_size
+        self.conf_threshold = conf_threshold
+        self.nms_iou_threshold = nms_iou_threshold
+        self.max_boxes = max_boxes
+
+    @classmethod
+    def from_folded(cls, model_cfg: ModelConfig, folded, *, device, **kwargs) -> "Predictor":
+        """Build from a folded tree in the JAX layout (``YOLOv3.fold`` output
+        as numpy arrays; see ``models/convert.py``)."""
+        model = folded_from_numpy(build_plan(model_cfg), folded, model_cfg)
+        return cls(model, device=device, **kwargs)
+
+    def predict_batch(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, S, S, 3) float in [0, 1], numpy or tensor.
+
+        Returns ((B, K, 6), (B, K) bool) tensors on the predictor's device."""
+        with torch.inference_mode():
+            x = torch.as_tensor(x).to(self.device)
+            grid_sizes = cfg.grid_sizes_for(x.shape[1], self.model.strides)
+            scaled_anchors = torch.from_numpy(
+                self.anchors * np.asarray(grid_sizes, np.float32).reshape(-1, 1, 1)
+            ).to(self.device)
+            raw = self.model(x)
+            boxes = decode_raw_all(
+                raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
+            )
+            return batched_nms(
+                boxes,
+                iou_threshold=self.nms_iou_threshold,
+                obj_threshold=self.conf_threshold,
+                max_boxes=self.max_boxes,
+            )
+
+    def predict_images(
+        self, np_images: List[np.ndarray], num_threads: int = 0
+    ) -> List[List[List[float]]]:
+        """Batched serving: letterbox every HWC uint8 image, one
+        ``predict_batch``, per-image boxes in each original frame."""
+        x = _letterbox_batch(np_images, self.image_size, num_threads)
+        kept, mask = self.predict_batch(x)
+        kept, mask = kept.cpu().numpy(), mask.cpu().numpy()
+        size = (self.image_size, self.image_size)
+        return [
+            unletterbox_boxes(nms_to_list(kept[i], mask[i]), img.shape[:2], size)
+            for i, img in enumerate(np_images)
+        ]
+
+    def predict_image(self, np_image: np.ndarray) -> List[List[float]]:
+        """One HWC uint8 image -> NMS boxes in the original image's
+        normalized frame [cx, cy, w, h, score, class]."""
+        h0, w0 = np_image.shape[:2]
+        img, _ = letterbox(np_image, None, self.image_size)
+        x = (img.astype(np.float32) / 255.0)[None]
+        kept, mask = self.predict_batch(x)
+        boxes = nms_to_list(kept[0], mask[0])
+        return unletterbox_boxes(boxes, (h0, w0), (self.image_size, self.image_size))

@@ -1,0 +1,326 @@
+"""Folded-inference YOLOv3 (Darknet-53 backbone + 3-scale heads) in PyTorch.
+
+Counterpart of ``yolo_for_turbines_tpu/models/yolov3.py``: the same layer
+DSL and static plan, and an ``nn.Module`` with the semantics of
+``apply_inference(..., raw_heads=True)`` over BN-folded weights (conv + bias
++ activation per layer). Routes are saved at the 8-block residual stages and
+popped LIFO after each upsample; a concat is ``[upsampled, route]``; a head
+is a branch and the trunk continues from the head's input.
+
+Only the Darknet-53 family is ported so far: CSP stages and the tiny
+backbone raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from yolo_for_turbines_tpu.config import ModelConfig
+
+from ..ops.kernels.resblock_kernel import apply_residual_stage_fused, stack_block_params
+from .blocks import conv2d, get_activation, upsample2x
+
+_LATER = "is not ported yet (the other model families come in a later slice of the port)"
+
+# Same declarative architecture list as the JAX package (reference:
+# code/model.py:20-45).
+LAYER_CONFIG = (
+    (32, 3, 1),
+    (64, 3, 2),
+    ("B", 1),
+    (128, 3, 2),
+    ("B", 2),
+    (256, 3, 2),
+    ("B", 8),  # route to detection head
+    (512, 3, 2),
+    ("B", 8),  # route to detection head
+    (1024, 3, 2),
+    ("B", 4),  # end of Darknet-53
+    (512, 1, 1),
+    (1024, 3, 1),
+    "S",
+    (256, 1, 1),
+    "U",
+    (256, 1, 1),
+    (512, 3, 1),
+    "S",
+    (128, 1, 1),
+    "U",
+    (128, 1, 1),
+    (256, 3, 1),
+    "S",
+)
+
+
+# ---------------------------------------------------------------------------
+# Plan (static description of the layer sequence)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanConv:
+    in_ch: int
+    out_ch: int
+    kernel: int
+    stride: int
+    bn: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanResidual:
+    channels: int
+    num_blocks: int
+    use_residual: bool = True
+    save_route: bool = False  # feature map feeds a later concat
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanHead:
+    """3x3 conv (to mid_ch, default 2*in_ch) then a 1x1 with bias and no BN
+    to A*(5+C) channels; a branch: the trunk continues from its input."""
+
+    in_ch: int
+    num_classes: int
+    anchors_per_scale: int = 3
+    mid_ch: Optional[int] = None
+
+    @property
+    def mid(self) -> int:
+        return self.mid_ch if self.mid_ch is not None else 2 * self.in_ch
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMaxPool:
+    """Max pool (tiny-YOLO backbone); stride 1 = SAME padding."""
+
+    kernel: int = 2
+    stride: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRoute:
+    """Explicit route marker (tiny-YOLO)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanUpsample:
+    """Nearest 2x upsample + channel concat with the most recent saved route."""
+
+    in_ch: int
+
+
+Plan = Tuple
+
+
+def build_plan(cfg: ModelConfig, layer_config=LAYER_CONFIG) -> Plan:
+    """Walk the layer DSL into a static plan (reference: code/model.py:195-225)."""
+    if cfg.backbone == "yolov3_tiny" and cfg.layer_config is None:
+        raise NotImplementedError(f"backbone 'yolov3_tiny' {_LATER}")
+    if cfg.backbone == "cspdarknet53" and cfg.layer_config is None:
+        raise NotImplementedError(f"backbone 'cspdarknet53' {_LATER}")
+    if cfg.layer_config is not None:
+        layer_config = cfg.layer_config
+    plan: List = []
+    in_ch = cfg.in_channels
+    for block in layer_config:
+        if isinstance(block, tuple) and block[0] == "B":
+            n = block[1]
+            plan.append(
+                PlanResidual(channels=in_ch, num_blocks=n, save_route=(n == 8))
+            )
+        elif isinstance(block, tuple) and block[0] == "C":
+            raise NotImplementedError(f"CSP stage {block!r} {_LATER}")
+        elif isinstance(block, tuple):
+            out_ch, k, s = block
+            plan.append(PlanConv(in_ch, out_ch, kernel=k, stride=s))
+            in_ch = out_ch
+        elif block == "S":
+            plan.append(PlanResidual(channels=in_ch, num_blocks=1, use_residual=False))
+            plan.append(PlanConv(in_ch, in_ch // 2, kernel=1, stride=1))
+            plan.append(PlanHead(in_ch // 2, cfg.num_classes, cfg.anchors_per_scale))
+            in_ch = in_ch // 2
+        elif block == "U":
+            plan.append(PlanUpsample(in_ch))
+            in_ch = in_ch * 3  # concat with a route that has 2x our channels
+        else:
+            raise ValueError(f"Unknown layer config entry: {block!r}")
+    return tuple(plan)
+
+
+# ---------------------------------------------------------------------------
+# Init of a folded tree
+# ---------------------------------------------------------------------------
+
+
+def _init_folded_conv(gen, in_ch, out_ch, kernel, bn=True):
+    """Folded twin of the JAX ``init_conv``: weights U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) in HWIO; a fresh BN (scale 1, bias 0, mean 0, var 1)
+    folds to w / sqrt(1 + eps) and a zero bias; a head's 1x1 keeps its
+    uniform bias."""
+    bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+    w = (torch.rand(kernel, kernel, in_ch, out_ch, generator=gen) * 2 - 1) * bound
+    if bn:
+        return {"w": w / math.sqrt(1.0 + 1e-5), "b": torch.zeros(out_ch)}
+    return {"w": w, "b": (torch.rand(out_ch, generator=gen) * 2 - 1) * bound}
+
+
+def init_plan(plan: Plan, generator: torch.Generator):
+    """Random folded tree aligned with a plan, in the layout of the JAX
+    ``fold_params`` output (HWIO weights), as CPU float32 tensors."""
+    folded = []
+    for entry in plan:
+        if isinstance(entry, PlanConv):
+            folded.append({"conv": _init_folded_conv(
+                generator, entry.in_ch, entry.out_ch, entry.kernel, entry.bn)})
+        elif isinstance(entry, PlanResidual):
+            c = entry.channels
+            folded.append({"blocks": [
+                {"conv1": _init_folded_conv(generator, c, c // 2, 1),
+                 "conv2": _init_folded_conv(generator, c // 2, c, 3)}
+                for _ in range(entry.num_blocks)
+            ]})
+        elif isinstance(entry, PlanHead):
+            out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
+            folded.append({
+                "conv1": _init_folded_conv(generator, entry.in_ch, entry.mid, 3),
+                "conv2": _init_folded_conv(generator, entry.mid, out_ch, 1, bn=False),
+            })
+        elif isinstance(entry, PlanUpsample):
+            folded.append({})
+        else:
+            raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+    return folded
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class FoldedConv(nn.Module):
+    """Conv + bias (+ activation) over BN-folded OIHW weights."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.padding = 1 if kernel == 3 else 0
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
+
+    def forward(self, x, act=None):
+        y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
+        return act(y) if act is not None else y
+
+
+class ResidualStage(nn.Module):
+    """A stack of folded residual blocks (1x1 halve, 3x3 restore)."""
+
+    def __init__(self, entry: PlanResidual):
+        super().__init__()
+        c = entry.channels
+        self.entry = entry
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({"conv1": FoldedConv(c, c // 2, 1),
+                           "conv2": FoldedConv(c // 2, c, 3)})
+            for _ in range(entry.num_blocks)
+        )
+        self._stacked = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() / .half() replace the weights: drop the kernel copy
+        self._stacked = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def stacked(self):
+        """The blocks' weights in the fused kernel's layout (cached)."""
+        if self._stacked is None:
+            self._stacked = stack_block_params([
+                {k: {"w": blk[k].weight, "b": blk[k].bias} for k in ("conv1", "conv2")}
+                for blk in self.blocks
+            ])
+        return self._stacked
+
+    def forward(self, x, act, activation: str, fuse: bool):
+        if fuse and self.entry.use_residual:
+            # NCHW channels_last storage is NHWC: permute + contiguous is free
+            fused = apply_residual_stage_fused(
+                self.stacked(), x.permute(0, 2, 3, 1).contiguous(), activation
+            )
+            if fused is not None:
+                return fused.permute(0, 3, 1, 2)
+        for blk in self.blocks:
+            y = blk["conv1"](x, act)
+            y = blk["conv2"](y, act)
+            x = x + y if self.entry.use_residual else y
+        return x
+
+
+class Head(nn.Module):
+    def __init__(self, entry: PlanHead):
+        super().__init__()
+        out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
+        self.conv1 = FoldedConv(entry.in_ch, entry.mid, 3)
+        self.conv2 = FoldedConv(entry.mid, out_ch, 1)
+
+    def forward(self, x, act):
+        return self.conv2(self.conv1(x, act))
+
+
+class FoldedYOLOv3(nn.Module):
+    """Folded-BN inference forward with raw heads.
+
+    ``forward`` takes an NHWC image batch in [0, 1] and returns one raw head
+    per scale, coarsest first, each NHWC ``(B, S, S, A*(5+C))`` in the
+    module's dtype (``apply_inference(..., raw_heads=True)``). Inside, the
+    trunk runs NCHW; with ``memory_format=torch.channels_last`` weights the
+    activations are NHWC in memory, which is what the fused residual kernel
+    takes.
+    """
+
+    def __init__(self, cfg: ModelConfig, plan: Optional[Plan] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = build_plan(cfg) if plan is None else plan
+        layers = []
+        for entry in self.plan:
+            if isinstance(entry, PlanConv):
+                layers.append(FoldedConv(entry.in_ch, entry.out_ch, entry.kernel, entry.stride))
+            elif isinstance(entry, PlanResidual):
+                layers.append(ResidualStage(entry))
+            elif isinstance(entry, PlanHead):
+                layers.append(Head(entry))
+            elif isinstance(entry, PlanUpsample):
+                layers.append(nn.Identity())
+            else:
+                raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+        self.layers = nn.ModuleList(layers)
+        # cfg.s2d_stem is a train-mode TPU layout and is ignored here
+        self.fuse_resblocks = cfg.fuse_resblocks
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        return self.cfg.strides
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        act = get_activation(self.cfg.activation)
+        x = x.to(next(self.parameters()).dtype).permute(0, 3, 1, 2)
+        preds: List[torch.Tensor] = []
+        routes: List[torch.Tensor] = []
+        for entry, layer in zip(self.plan, self.layers):
+            if isinstance(entry, PlanConv):
+                x = layer(x, act)
+            elif isinstance(entry, PlanResidual):
+                x = layer(x, act, self.cfg.activation, self.fuse_resblocks)
+                if entry.save_route:
+                    routes.append(x)
+            elif isinstance(entry, PlanHead):
+                preds.append(layer(x, act).permute(0, 2, 3, 1))
+            elif isinstance(entry, PlanUpsample):
+                x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
+        return preds

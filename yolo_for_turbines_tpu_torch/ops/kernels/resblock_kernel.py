@@ -1,0 +1,175 @@
+"""Fused folded residual blocks (kernel K2, ``csrc/resblock.cu``), its plain
+torch version, and the router the model calls.
+
+Counterpart of ``yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py``. A
+Darknet-53 residual block at inference is
+
+    x = x + act(conv3x3(act(x @ W1 + b1)) + b2)
+
+with f32 accumulation, ``mid`` rounded to the activation dtype, and the
+residual added in the activation dtype. The Pallas kernel runs a chunk of
+blocks per launch with the image resident in VMEM; the CUDA kernel runs one
+block per launch over row tiles (see the note at the top of the source).
+
+Layouts follow the JAX package: x is NHWC, w1s is (n, C, C/2) or
+(n, 1, 1, C, C/2), w2s is (n, 3, 3, C/2, C) HWIO, biases are (n, C/2) and
+(n, C). ``fused_residual_stage`` dispatches on the tensor's device: a CPU
+tensor takes ``fused_residual_stage_reference``; a CUDA tensor launches the
+kernel once per block or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import check, load_library, stream_handle
+
+# kernel launches since the last reset (read by chip_smoke.py)
+launches = 0
+
+MAX_SMEM = 232448  # shared memory one CTA may opt into on sm_90 (227 KB)
+
+_ACT_CODES = {"leaky_relu": 0, "mish": 1}
+_ACTIVATIONS = {
+    "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
+    "mish": F.mish,
+}
+
+
+def fused_residual_stage_reference(x, w1s, b1s, w2s, b2s, *,
+                                   activation: str = "leaky_relu"):
+    """Plain torch version: the 1x1 as a matmul, the 3x3 via
+    ``F.conv2d(padding=1)``, both in f32 on operands rounded to ``x.dtype``;
+    rounds to ``x.dtype`` after each activation, as the kernels do."""
+    act = _ACTIVATIONS[activation]
+    dt = x.dtype
+    n, c = w2s.shape[0], x.shape[-1]
+    ch = c // 2
+    w1s = w1s.reshape(n, c, ch)
+    for i in range(n):
+        mid = act(x.float() @ w1s[i].to(dt).float() + b1s[i].float()).to(dt)
+        w2 = w2s[i].to(dt).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
+        y = F.conv2d(mid.permute(0, 3, 1, 2).float(), w2, padding=1)
+        y = act(y + b2s[i].float()[None, :, None, None]).to(dt)
+        x = x + y.permute(0, 2, 3, 1)
+    return x
+
+
+def _check_cuda_args(x, w1s, b1s, w2s, b2s, activation):
+    if activation not in _ACT_CODES:
+        raise ValueError(f"fused_residual_stage: unsupported activation {activation!r}")
+    if x.dim() != 4:
+        raise ValueError(f"fused_residual_stage: x must be NHWC, got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    n, ch = w2s.shape[0], c // 2
+    expected = {
+        "w1s": (w1s, (n, c, ch), torch.bfloat16),
+        "b1s": (b1s, (n, ch), torch.float32),
+        "w2s": (w2s, (n, 3, 3, ch, c), torch.bfloat16),
+        "b2s": (b2s, (n, c), torch.float32),
+        "x": (x, (b, h, w, c), torch.bfloat16),
+    }
+    for name, (t, shape, dtype) in expected.items():
+        got = tuple(t.shape)
+        if name == "w1s" and got == (n, 1, 1, c, ch):
+            got = shape
+        if got != shape or t.dtype != dtype:
+            raise ValueError(
+                f"fused_residual_stage: {name} must be {dtype} {shape}, "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != x.device:
+            raise ValueError(f"fused_residual_stage: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_residual_stage: {name} must be contiguous and 16-byte aligned")
+    if c % 64:
+        raise ValueError(f"fused_residual_stage: C={c} must be a multiple of 64")
+
+
+def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
+                         activation: str = "leaky_relu"):
+    """Run a stack of folded residual blocks.
+
+    Args:
+        x: (B, H, W, C) activation; bf16 on CUDA.
+        w1s: (n, C, C/2) or (n, 1, 1, C, C/2) folded 1x1 weights (bf16 on CUDA).
+        b1s: (n, C/2) folded 1x1 biases (f32 on CUDA).
+        w2s: (n, 3, 3, C/2, C) folded 3x3 weights, HWIO (bf16 on CUDA).
+        b2s: (n, C) folded 3x3 biases (f32 on CUDA).
+
+    Returns (B, H, W, C) in a new tensor; ``x`` is left unchanged.
+    """
+    global launches
+    if x.device.type == "cpu":
+        return fused_residual_stage_reference(
+            x, w1s, b1s, w2s, b2s, activation=activation
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_residual_stage: unsupported device {x.device}")
+    _check_cuda_args(x, w1s, b1s, w2s, b2s, activation)
+    b, h, w, c = x.shape
+    n = w2s.shape[0]
+    lib = load_library()
+    smem = lib.resblock_smem_bytes(w, c)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"fused_residual_stage: W={w}, C={c} needs {smem} B of shared "
+            "memory per CTA, over the 227 KB limit"
+        )
+    if b == 0 or n == 0:
+        return x.clone()
+    stream = stream_handle(x.device)
+    # The kernel reads the rows just above and below each image (and
+    # discards what it computes from them), so both buffers carry zeroed
+    # padding around the batch. Neighbouring CTAs read each other's halo
+    # rows: the blocks ping-pong between the two buffers, never in place.
+    pad = lib.resblock_pad_pixels(w, c) * c
+    size = b * h * w * c
+    bufs = []
+    for _ in range(2):
+        buf = torch.empty(size + 2 * pad, dtype=x.dtype, device=x.device)
+        buf[:pad].zero_()
+        buf[pad + size:].zero_()
+        bufs.append(buf)
+    bufs[0][pad : pad + size].copy_(x.reshape(-1))
+    for i in range(n):
+        src, dst = bufs[i % 2], bufs[(i + 1) % 2]
+        rc = lib.resblock_launch(
+            src[pad:].data_ptr(), w1s[i].data_ptr(), b1s[i].data_ptr(),
+            w2s[i].data_ptr(), b2s[i].data_ptr(), dst[pad:].data_ptr(),
+            b, h, w, c, _ACT_CODES[activation], stream,
+        )
+        check(rc, "resblock_launch")
+        launches += 1
+    return bufs[n % 2][pad : pad + size].view(b, h, w, c)
+
+
+def stack_block_params(blocks: Sequence[Dict]) -> Tuple[torch.Tensor, ...]:
+    """Per-block folded params ``[{'conv1': {w, b}, 'conv2': {w, b}}, ...]``
+    with OIHW torch weights -> the kernel layout ``(w1s, b1s, w2s, b2s)``:
+    (n, C, C/2) and (n, 3, 3, C/2, C) in the weights' dtype, f32 biases."""
+    w1s = torch.stack([bp["conv1"]["w"][:, :, 0, 0].t() for bp in blocks])
+    w2s = torch.stack([bp["conv2"]["w"].permute(2, 3, 1, 0) for bp in blocks])
+    b1s = torch.stack([bp["conv1"]["b"] for bp in blocks]).float()
+    b2s = torch.stack([bp["conv2"]["b"] for bp in blocks]).float()
+    return w1s.contiguous(), b1s, w2s.contiguous(), b2s
+
+
+def stage_wins(h: int, w: int, c: int) -> bool:
+    """Geometry class the fused stage is routed to: c >= 512 and
+    16^2 <= h*w <= 32^2, i.e. the 26x26x512 stage of Darknet-53 at 416px.
+    The batch gate and VMEM chunk test of the JAX router were TPU
+    measurements and are not applied."""
+    return c >= 512 and 16 * 16 <= h * w <= 32 * 32
+
+
+def apply_residual_stage_fused(stacked, x, activation: str) -> Optional[torch.Tensor]:
+    """Router for a residual stage: x NHWC; returns None when the geometry
+    stays on the layer-by-layer path."""
+    _, h, w, c = x.shape
+    if not stage_wins(h, w, c):
+        return None
+    return fused_residual_stage(x, *stacked, activation=activation)
