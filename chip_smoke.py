@@ -11,10 +11,25 @@ Phases, one JSON line each:
   k2      fused residual block against its plain torch version in bf16 at the
           five Darknet-53 residual geometries (leaky and mish); times of the
           26x26x512 stage at B = 8 and 128;
+  k3      pairwise IoU against its plain torch version, K in {256, 1000,
+          4096}, center and top-left boxes: matrices must be equal bit for
+          bit; CUDA-event times at K = 256 and 4096;
+  k4      fused int8 residual block against its plain torch version at the
+          five Darknet-53 residual geometries (leaky and mish): leaky codes
+          must be equal, mish codes at most 1 apart on under 1% of elements;
+          times of the 26x26x512 stage at B = 8 and 128 (leaky codes equal
+          there too), with the int8 layer path (im2col + torch._int_mm +
+          epilogue) for scale;
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
-          both kernels must launch, outputs must be finite and well shaped,
-          and raw heads must agree with an f32 CPU forward of the same weights.
+          K1 and K2 must launch, outputs must be finite and well shaped,
+          and raw heads must agree with an f32 CPU forward of the same weights;
+  main_int8  the same model quantized (int8 PTQ, calibrated on 8 seeded
+          images) and served through the same entry points: K1 and K4 must
+          launch, outputs must be finite and well shaped, and against the
+          port's int8 CPU forward of the same qparams the s8 trunk codes
+          each head reads must agree and the raw heads must agree (cosine).
+Both main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit).
 """
@@ -44,6 +59,21 @@ K2_TOL = 2.0 ** -5
 # relative RMS error per head. About 75 layers each round activations to bf16
 # (2^-9 relative), which compounds to a few percent at the heads.
 HEAD_RTOL = 0.05
+# K4 with mish: the kernel's tanhf/log1pf/expf may differ from torch's CUDA
+# mish by an ulp, which moves a requant code at a .5 tie. With leaky_relu
+# the codes must be equal.
+K4_MISH_MAX_CODES = 1
+K4_MISH_MAX_FRAC = 0.01
+# int8 card forward against the port's int8 CPU forward from the same
+# qparams. The trunk runs the same integer products and the same f32
+# epilogue ops in the same order on both (K4 equals its plain version), so
+# the s8 codes each head reads should be equal; a requant code flipped at a
+# .5 tie would spread through the layers after it, so the bound is on the
+# share of differing codes. A wrong kernel, im2col or padding moves most
+# codes. The heads, mostly bias on random weights, run bf16 on the card and
+# f32 on the CPU: cosine per raw head.
+INT8_TRUNK_MAX_FRAC = 1e-3
+INT8_HEAD_COS = 0.999
 
 
 def emit(obj) -> None:
@@ -189,26 +219,141 @@ def phase_k2(dev, gen):
             "plain_ms": out["26x26x512_B128_plain_ms"]}
 
 
-def phase_main(dev):
+def phase_k3(dev, gen):
+    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel as ik
+    from yolo_for_turbines_tpu_torch.ops.kernels.nms_kernel import _top_left
+
+    out = {"phase": "k3", "kernel": "pairwise_iou", "checks": []}
+    worst = 0.0
+    for k in (256, 1000, 4096):
+        boxes = torch.cat([torch.rand(k, 2, generator=gen) * 0.8 + 0.1,
+                           torch.rand(k, 2, generator=gen) * 0.38 + 0.02], dim=1).to(dev)
+        for fmt in ("center", "top_left"):
+            got = ik.pairwise_iou(boxes, fmt)
+            torch.cuda.synchronize()
+            want = ik.pairwise_iou_reference(_top_left(boxes, fmt))
+            err = (got - want).abs().max().item()
+            out["checks"].append({"K": k, "format": fmt, "mismatches": int((got != want).sum()),
+                                  "max_abs_err": err})
+            worst = max(worst, err)
+            if out["checks"][-1]["mismatches"]:
+                emit(out)
+                raise AssertionError(f"K3 differs from plain: {out['checks'][-1]}")
+        if k in (256, 4096):
+            ms, plain_ms = ab_ms(
+                lambda: ik.pairwise_iou(boxes, "center"),
+                lambda: ik.pairwise_iou_reference(_top_left(boxes, "center")),
+                iters=50, plain_iters=10,
+            )
+            out[f"K{k}_ms"], out[f"K{k}_plain_ms"] = ms, plain_ms
+            # top-left input: the wrapper converts nothing, so this is the
+            # kernel plus the wrapper's own host work
+            out[f"K{k}_top_left_ms"] = cuda_ms(lambda: ik.pairwise_iou(boxes, "top_left"), 50)
+    emit(out)
+    return {"max_abs_err": worst, "ms": out["K4096_ms"], "plain_ms": out["K4096_plain_ms"]}
+
+
+def int8_stage_inputs(rng, batch, hw, c, n, dev):
+    """Random s8 activations, weights quantized with ``_wq`` and seeded
+    scales, as tests/test_resblock_int8_kernel.py builds them."""
+    from yolo_for_turbines_tpu_torch.models.quantize import _wq
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    blocks = []
+    for _ in range(n):
+        w1q, s1 = _wq(rng.normal(0, 0.5, (1, 1, c, c // 2)))
+        w2q, s2 = _wq(rng.normal(0, 0.2, (3, 3, c // 2, c)))
+        blocks.append({"w1q": w1q.to(dev), "s1": s1.to(dev), "b1": f32(rng.normal(0, 0.1, c // 2)),
+                       "w2q": w2q.to(dev), "s2": s2.to(dev), "b2": f32(rng.normal(0, 0.1, c))})
+    xq = torch.from_numpy(rng.integers(-127, 128, (batch, hw, hw, c), dtype=np.int8)).to(dev)
+    s1 = [f32(v) for v in rng.uniform(0.01, 0.05, n)]
+    s2 = [f32(v) for v in rng.uniform(0.01, 0.05, n)]
+    return xq, blocks, f32(0.021), s1, s2
+
+
+def phase_k4(dev, rng):
+    from yolo_for_turbines_tpu_torch.models import quantize as tq
+    from yolo_for_turbines_tpu_torch.ops.kernels import resblock_int8_kernel as rk
+
+    out = {"phase": "k4", "kernel": "fused_residual_stage_int8",
+           "mish_max_codes": K4_MISH_MAX_CODES, "mish_max_frac": K4_MISH_MAX_FRAC,
+           "checks": []}
+    worst = 0
+    cases = [(g, 2) for g in GEOMETRIES] + [((26, 512, 8), 8)]
+    for activation in ("leaky_relu", "mish"):
+        for (hw, c, n), batch in cases:
+            xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, batch, hw, c, n, dev)
+            ops = rk.pack_int8_stage(blocks, s_x, s1, s2)
+            got = rk.fused_residual_stage_int8(xq, *ops, activation=activation)
+            torch.cuda.synchronize()
+            want = rk.fused_residual_stage_int8_reference(xq, *ops, activation=activation)
+            diff = (got.int() - want.int()).abs()
+            codes, frac = int(diff.max()), float((diff != 0).float().mean())
+            out["checks"].append({"act": activation, "hw": hw, "c": c, "n": n, "B": batch,
+                                  "max_codes": codes, "frac_differing": frac})
+            worst = max(worst, codes)
+            ok = codes == 0 if activation == "leaky_relu" else (
+                codes <= K4_MISH_MAX_CODES and frac < K4_MISH_MAX_FRAC)
+            if not ok:
+                emit(out)
+                raise AssertionError(f"K4 differs from plain: {out['checks'][-1]}")
+    for batch in (8, 128):
+        xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, batch, 26, 512, 8, dev)
+        ops = rk.pack_int8_stage(blocks, s_x, s1, s2)
+        layers = tq.pack_int8_blocks(blocks, s_x, s1, s2, use_residual=True)
+        # the timed shape is held against the plain version too (leaky)
+        got = rk.fused_residual_stage_int8(xq, *ops)
+        mismatches = int((got != rk.fused_residual_stage_int8_reference(xq, *ops)).sum())
+        out[f"26x26x512_B{batch}_leaky_mismatches"] = mismatches
+        if mismatches:
+            emit(out)
+            raise AssertionError(f"K4 differs from plain at the timed shape, B={batch}")
+        ms, plain_ms = ab_ms(
+            lambda: rk.fused_residual_stage_int8(xq, *ops),
+            lambda: rk.fused_residual_stage_int8_reference(xq, *ops),
+            iters=10, plain_iters=3,
+        )
+        out[f"26x26x512_B{batch}_ms"] = ms
+        out[f"26x26x512_B{batch}_plain_ms"] = plain_ms
+        out[f"26x26x512_B{batch}_int8_layers_ms"] = cuda_ms(
+            lambda: tq.residual_blocks_int8(xq, layers), 10)
+        # the layer path divides by the scales where the kernel multiplies
+        # by their reciprocals: codes may differ at ties (not gated)
+        diff = rk.fused_residual_stage_int8(xq, *ops) != tq.residual_blocks_int8(xq, layers)
+        out[f"26x26x512_B{batch}_layers_vs_kernel_frac_differing"] = float(diff.float().mean())
+        if batch == 8:  # the same for the first block alone
+            one = rk.fused_residual_stage_int8(xq, *(t[:1] for t in ops))
+            diff = (one.int() - tq.residual_blocks_int8(xq, layers[:1]).int()).abs()
+            out["26x26x512_B8_one_block_layers_vs_kernel"] = {
+                "frac_differing": float((diff != 0).float().mean()), "max_codes": int(diff.max())}
+    emit(out)
+    return {"max_abs_err": float(worst), "ms": out["26x26x512_B128_ms"],
+            "plain_ms": out["26x26x512_B128_plain_ms"]}
+
+
+def full_model():
     from yolo_for_turbines_tpu.config import ModelConfig
-    from yolo_for_turbines_tpu_torch.inference import Predictor
-    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
     from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
-    from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel, resblock_kernel
 
     model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
     plan = build_plan(model_cfg)
-    tree = init_plan(plan, torch.Generator().manual_seed(SEED))
-    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev)
+    return model_cfg, plan, init_plan(plan, torch.Generator().manual_seed(SEED))
+
+
+def serving_inputs(dev):
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
               for h, w in ((480, 640), (300, 500), (416, 416), (720, 400))]
     batches = {b: torch.from_numpy(rng.uniform(size=(b, 416, 416, 3)).astype(np.float32)).to(dev)
                for b in (8, 128)}
-    out = {"phase": "main", "model": "darknet53 yolov3, 80 classes, 416px, bf16"}
+    return images, batches
 
-    nms_kernel.launches = 0
-    resblock_kernel.launches = 0
+
+def drive(pred, images, batches, out) -> None:
+    """The user's entry points: predict_images, predict_image, predict_batch
+    at each batch size (timed); checks shapes and finiteness."""
     results = pred.predict_images(images)
     single = pred.predict_image(images[0])
     for b, x in batches.items():
@@ -224,15 +369,32 @@ def phase_main(dev):
             pred.predict_batch(x)
         torch.cuda.synchronize()
         out[f"B{b}_images_per_s"] = b * iters / (time.perf_counter() - t0)
-    launches = {"greedy_nms": nms_kernel.launches,
-                "fused_residual_stage": resblock_kernel.launches}
-    out["launches"] = launches
-
     require(len(results) == len(images), "predict_images lost images")
     for boxes in results + [single]:
         for row in boxes:
             require(len(row) == 6 and all(np.isfinite(row)), f"bad box row {row}")
     out["boxes_per_image"] = [len(r) for r in results]
+
+
+def phase_main(dev):
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+
+    model_cfg, plan, tree = full_model()
+    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev)
+    images, batches = serving_inputs(dev)
+    out = {"phase": "main", "model": "darknet53 yolov3, 80 classes, 416px, bf16"}
+
+    nms_kernel.launches = 0
+    resblock_kernel.launches = 0
+    iou_kernel.launches = 0
+    drive(pred, images, batches, out)
+    launches = {"greedy_nms": nms_kernel.launches,
+                "fused_residual_stage": resblock_kernel.launches}
+    out["launches"] = launches
+    # no serving path calls K3 (as in the JAX package): counted, not gated
+    out["pairwise_iou_launches"] = iou_kernel.launches
     if not all(launches.values()):
         emit(out)
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -255,7 +417,90 @@ def phase_main(dev):
     emit(out)
     if not max(errs) <= HEAD_RTOL:
         raise AssertionError(f"raw heads differ from the f32 CPU forward: {errs}")
-    return launches
+    return (launches, out["pairwise_iou_launches"],
+            {k: v for k, v in out.items() if k.endswith("_images_per_s")})
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_main_int8(dev, bf16_rates):
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import qparams_from_numpy
+    from yolo_for_turbines_tpu_torch.models.quantize import apply_inference_int8
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        iou_kernel,
+        nms_kernel,
+        resblock_int8_kernel,
+        resblock_kernel,
+    )
+
+    model_cfg, plan, tree = full_model()
+    pred = Predictor.from_folded(model_cfg, tree, device=dev)
+    images, batches = serving_inputs(dev)
+    calib = np.random.default_rng(SEED + 1).uniform(size=(8, 416, 416, 3)).astype(np.float32)
+    out = {"phase": "main_int8", "model": "darknet53 yolov3, 80 classes, 416px, int8 PTQ "
+           "(bf16 heads)", "calibration_images": len(calib)}
+    x1 = batches[8][:1]
+    bf16_heads = pred.raw_heads(x1)
+    t0 = time.perf_counter()
+    pred.quantize(calib)
+    torch.cuda.synchronize()
+    out["quantize_s"] = time.perf_counter() - t0
+
+    nms_kernel.launches = 0
+    resblock_int8_kernel.launches = 0
+    resblock_kernel.launches = 0
+    iou_kernel.launches = 0
+    drive(pred, images, batches, out)
+    launches = {"greedy_nms": nms_kernel.launches,
+                "fused_residual_stage_int8": resblock_int8_kernel.launches}
+    out["launches"] = launches
+    out["bf16_fused_residual_stage_launches"] = resblock_kernel.launches
+    out["pairwise_iou_launches"] = iou_kernel.launches
+    out["bf16_images_per_s"] = bf16_rates
+    if not all(launches.values()) or resblock_kernel.launches:
+        emit(out)
+        raise AssertionError(f"the int8 path did not run its kernels: {out['launches']}, "
+                             f"bf16 stage launches {resblock_kernel.launches}")
+
+    # one image through the int8 forward on the card and the port's int8
+    # CPU forward from the same qparams (f32 heads): the s8 trunk codes
+    # each head reads, then the raw heads
+    kw = {"activation": model_cfg.activation, "raw_heads": True}
+    dev_trunk, cpu_trunk = [], []
+    with torch.inference_mode():
+        dev_heads = apply_inference_int8(plan, pred._qparams, x1, compute_dtype=pred.compute_dtype,
+                                         packed=pred._packed, head_inputs=dev_trunk, **kw)
+        cpu_heads = apply_inference_int8(
+            plan, qparams_from_numpy(plan, pred._qparams, "cpu"), x1.cpu(),
+            compute_dtype=torch.float32, head_inputs=cpu_trunk, **kw)
+    codes = []
+    for d_in, c_in in zip(dev_trunk, cpu_trunk):
+        for d, c in zip(d_in, c_in):
+            diff = (d.cpu().int() - c.int()).abs()
+            codes.append({"shape": list(c.shape), "max_codes": int(diff.max()),
+                          "frac_differing": float((diff != 0).float().mean())})
+    out["trunk_codes_card_vs_cpu_int8"] = codes
+    cos = []
+    for d, c in zip(dev_heads, cpu_heads):
+        d = d.float().cpu()
+        require(d.shape == c.shape and bool(torch.isfinite(d).all()),
+                "int8 raw heads of the card not finite or misshapen")
+        cos.append(cosine(d, c))
+    out["head_cos_card_vs_cpu_int8"] = cos
+    # a property of PTQ on random weights, not of the port: not gated
+    out["head_cos_int8_vs_bf16"] = [cosine(a.float(), b.float())
+                                    for a, b in zip(dev_heads, bf16_heads)]
+    emit(out)
+    require(len(codes) == 3, f"expected one trunk tensor per head, got {len(codes)}")
+    if not max(c["frac_differing"] for c in codes) <= INT8_TRUNK_MAX_FRAC:
+        raise AssertionError(f"int8 trunk codes differ from the int8 CPU forward: {codes}")
+    if not min(cos) > INT8_HEAD_COS:
+        raise AssertionError(f"int8 raw heads differ from the int8 CPU forward: {cos}")
+    return launches, out["pairwise_iou_launches"]
 
 
 def main() -> int:
@@ -280,17 +525,32 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     k1 = phase_k1(dev, gen)
     k2 = phase_k2(dev, gen)
-    launches = phase_main(dev)
+    k3 = phase_k3(dev, gen)
+    k4 = phase_k4(dev, np.random.default_rng(SEED))
+    launches, iou_main, bf16_rates = phase_main(dev)
+    launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
+    nms_by_path = {"main": launches["greedy_nms"], "main_int8": launches_int8["greedy_nms"]}
+    iou_by_path = {"main": iou_main, "main_int8": iou_int8}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/nms.cu",
          "replaces": "yolo_for_turbines_tpu/ops/pallas/nms_kernel.py:78",
-         "launches": launches["greedy_nms"], **k1},
+         "launches": sum(nms_by_path.values()), "launches_by_path": nms_by_path, **k1},
         {"name": "fused_residual_stage", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/resblock.cu",
          "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py:100",
          "launches": launches["fused_residual_stage"], **k2},
+        # no serving path calls K3, in the port as in the JAX package
+        {"name": "pairwise_iou", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/iou.cu",
+         "replaces": "yolo_for_turbines_tpu/ops/pallas/iou_kernel.py:49",
+         "launches": sum(iou_by_path.values()), "launches_by_path": iou_by_path,
+         "on_a_serving_path": False, **k3},
+        {"name": "fused_residual_stage_int8", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/resblock_int8.cu",
+         "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_int8_kernel.py:95",
+         "launches": launches_int8["fused_residual_stage_int8"], **k4},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

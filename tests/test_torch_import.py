@@ -1,4 +1,5 @@
-"""Torch port: importing and serving with it leaves jax unimported.
+"""Torch port: importing it and serving with it, folded and int8, leaves jax
+unimported.
 
 Runs in a subprocess because this test process has jax loaded already
 (tests/conftest.py).
@@ -19,6 +20,9 @@ import torch
 import yolo_for_turbines_tpu_torch
 from yolo_for_turbines_tpu.config import ModelConfig
 from yolo_for_turbines_tpu_torch import inference, serving
+from yolo_for_turbines_tpu_torch.tools import profile_serving
+from yolo_for_turbines_tpu_torch.models import quantize
+from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, resblock_int8_kernel
 from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
 from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
 
@@ -33,6 +37,11 @@ x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
 kept, mask = pred.predict_batch(x)
 assert tuple(kept.shape) == (2, 8, 6) and mask.dtype == torch.bool
 assert bool(torch.isfinite(kept).all())
+pred.quantize(x)  # the int8 path: calibrate, quantize, serve
+kept, mask = pred.predict_batch(x)
+assert tuple(kept.shape) == (2, 8, 6) and bool(torch.isfinite(kept).all())
+iou = iou_kernel.pairwise_iou(torch.rand(5, 4))
+assert tuple(iou.shape) == (5, 5)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 print("OK")

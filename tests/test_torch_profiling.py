@@ -1,0 +1,41 @@
+"""Torch port: the predict_batch profiler (tools/profile_serving.py).
+
+On the CPU the profiler sees no device, so the summary's device time is 0
+and its idle share 1; the card's numbers come only from a run on a GPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yolo_for_turbines_tpu.config import ModelConfig
+from yolo_for_turbines_tpu_torch.tools import profile_serving
+from yolo_for_turbines_tpu_torch.inference import Predictor
+from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+
+from helpers import MINI_LAYERS
+
+
+def _predictor():
+    cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+    tree = init_plan(build_plan(cfg), torch.Generator().manual_seed(0))
+    return Predictor.from_folded(cfg, tree, device="cpu", image_size=64, max_boxes=8)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_profile_predict_batch_on_cpu(int8):
+    pred = _predictor()
+    x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    if int8:
+        pred.quantize(x)
+    summary, table = profile_serving.profile_predict_batch(pred, x, iters=1, warmup=1)
+    assert summary["wall_ms"] > 0
+    assert summary["device_busy_ms"] == 0 and summary["idle_share"] == 1.0
+    assert summary["top"] == []
+    assert "Self CPU" in table
+
+
+def test_profiling_cli_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        profile_serving.main([])

@@ -1,0 +1,182 @@
+"""Torch port: int8 PTQ (models/quantize.py) against the JAX package.
+
+Mini model (tests/helpers.py) at 64px, float32 heads, on the CPU. Tolerances:
+- weight codes and scales (``_wq``, ``quantize_folded``) and the i32 conv
+  products are exact: the same numpy code and integer arithmetic;
+- calibrated activation scales within rtol 1e-5: both frameworks run the f32
+  forward with full-precision convs (TF32 off, ``Precision.HIGHEST``) but
+  sum in different orders;
+- raw heads of ``apply_inference_int8`` from the same qparams: cosine > 0.999
+  per head, the bound of tests/test_resblock_int8_kernel.py. The port's
+  leaky_relu is ``F.leaky_relu`` and the JAX package's the algebraic
+  0.55x + 0.45|x|; they differ by about one f32 ulp, which can flip a requant
+  code at a .5 tie.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import mini_model
+from yolo_for_turbines_tpu.models import quantize as jq
+from yolo_for_turbines_tpu_torch.models import quantize as tq
+from yolo_for_turbines_tpu_torch.models.convert import qparams_from_numpy
+from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan
+
+SIZE = 64
+
+
+def _cos(a, b):
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+
+
+def _x(n, seed):
+    return np.random.default_rng(seed).uniform(size=(n, SIZE, SIZE, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=["leaky_relu", "mish"])
+def quantized(request):
+    model = mini_model(activation=request.param)
+    params, stats = model.init(jax.random.PRNGKey(3))
+    folded = jax.tree_util.tree_map(np.asarray, model.fold(params, stats))
+    xc = _x(4, 1)
+    qj = jax.tree_util.tree_map(np.asarray, jq.quantize_folded(
+        model.plan, folded, xc, request.param))
+    plan = build_plan(model.cfg)
+    return model, plan, folded, xc, qj
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 3, 32), (1, 1, 64, 32), (3, 3, 16, 24)])
+def test_wq_matches_jax(shape):
+    w = np.random.default_rng(0).normal(0, 0.3, shape).astype(np.float32)
+    w[..., 0] = 0.0  # an all-zero channel takes the 1e-12 scale floor
+    wq_j, s_j = jq._wq(w)
+    wq_t, s_t = tq._wq(w)
+    assert wq_t.dtype == torch.int8 and s_t.dtype == torch.float32
+    np.testing.assert_array_equal(wq_t.numpy(), np.asarray(wq_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+def test_calibrate_matches_jax(quantized):
+    model, plan, folded, xc, qj = quantized
+    got = tq.calibrate(plan, folded, torch.from_numpy(xc), model.cfg.activation)
+    want = jq.calibrate(model.plan, folded, xc, model.cfg.activation)
+    assert len(got) == len(want) == qj["scales"].shape[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
+def test_quantize_folded_weights_match_jax(quantized):
+    model, plan, folded, xc, qj = quantized
+    qt = tq.quantize_folded(plan, folded, torch.from_numpy(xc), model.cfg.activation)
+    want = qparams_from_numpy(plan, qj, "cpu")
+    for got_layer, want_layer in zip(qt["layers"], want["layers"]):
+        got_leaves = jax.tree_util.tree_leaves(got_layer)
+        want_leaves = jax.tree_util.tree_leaves(want_layer)
+        assert len(got_leaves) == len(want_leaves)
+        for g, w in zip(got_leaves, want_leaves):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w)
+    np.testing.assert_allclose(qt["scales"].numpy(), want["scales"].numpy(), rtol=1e-5, atol=0)
+
+
+def test_qparams_from_numpy_types_and_shapes(quantized):
+    _, plan, _, _, qj = quantized
+    qp = qparams_from_numpy(plan, qj, "cpu")
+    conv = qp["layers"][0]
+    assert conv["wq"].dtype == torch.int8 and tuple(conv["wq"].shape) == (3, 3, 3, 4)
+    assert conv["sw"].dtype == torch.float32 and conv["b"].dtype == torch.float32
+    assert qp["scales"].dtype == torch.float32 and qp["scales"].dim() == 1
+    bad = {"layers": list(qj["layers"]), "scales": qj["scales"]}
+    bad["layers"][0] = dict(bad["layers"][0], wq=bad["layers"][0]["wq"][:, :, :, :2])
+    with pytest.raises(ValueError, match="plan says"):
+        qparams_from_numpy(plan, bad, "cpu")
+
+
+@pytest.mark.parametrize("kernel,stride,cin", [(1, 1, 16), (3, 1, 8), (3, 2, 3), (3, 2, 16)])
+def test_conv_i8_matches_jax(kernel, stride, cin):
+    rng = np.random.default_rng(kernel * 10 + stride)
+    x = rng.integers(-127, 128, (2, 9, 10, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (kernel, kernel, cin, 24)).astype(np.int8)
+    pad = 1 if kernel == 3 else 0
+    want = np.asarray(jq._conv_i8(jnp.asarray(x), jnp.asarray(w), stride, pad))
+    got = tq._conv_i8(torch.from_numpy(x), tq._wmat(torch.from_numpy(w)), kernel, stride, pad)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_apply_inference_int8_matches_jax(quantized):
+    model, plan, _, _, qj = quantized
+    x = _x(2, 2)
+    want = jq.apply_inference_int8(model.plan, qj, x, activation=model.cfg.activation,
+                                   raw_heads=True, compute_dtype=jnp.float32, portable=True)
+    got = tq.apply_inference_int8(plan, qparams_from_numpy(plan, qj, "cpu"),
+                                  torch.from_numpy(x), activation=model.cfg.activation,
+                                  raw_heads=True, compute_dtype=torch.float32)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == np.asarray(w).shape and g.dtype == torch.float32
+        assert _cos(g.numpy(), w) > 0.999
+
+
+@pytest.fixture(scope="module")
+def wide_stage():
+    """A plan with one 512-channel residual stage at half the input size,
+    quantized from seeded weights on the CPU."""
+    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.models.yolov3 import init_plan
+
+    cfg = ModelConfig(num_classes=2,
+                      layer_config=((8, 3, 1), (512, 3, 2), ("B", 1), (16, 1, 1), "S"))
+    plan = build_plan(cfg)
+    tree = init_plan(plan, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, 32, 32, 3)).astype(np.float32))
+    return plan, tq.quantize_folded(plan, tree, x, "leaky_relu")
+
+
+# the stage is (size/2)^2 x 512: K4's class is 16^2 <= h*w <= 32^2
+@pytest.mark.parametrize("size,routed", [(16, False), (32, True), (64, True), (128, False)])
+def test_pack_int8_packs_k4_operands_only_where_routed(wide_stage, size, routed):
+    plan, qp = wide_stage
+    stage = tq.pack_int8(plan, qp, size, torch.float32)[3]  # packed[0] is the input scale
+    assert (stage["stage"] is not None) == routed
+    # the layer path's weights are views of the quantized tree, not copies
+    want = qp["layers"][2]["blocks"][0]
+    got = stage["blocks"][0]
+    assert got["w1"].data_ptr() == want["w1q"].data_ptr()
+    assert got["w2"].data_ptr() == want["w2q"].data_ptr()
+
+
+def test_apply_inference_int8_reports_head_inputs(quantized):
+    # head_inputs receives the s8 trunk tensors each head reads and changes
+    # nothing; the heads are those tensors dequantized and run through the
+    # head convs
+    model, plan, _, _, qj = quantized
+    qp = qparams_from_numpy(plan, qj, "cpu")
+    x = torch.from_numpy(_x(2, 5))
+    kw = {"activation": model.cfg.activation, "compute_dtype": torch.float32, "raw_heads": True}
+    trunk = []
+    got = tq.apply_inference_int8(plan, qp, x, head_inputs=trunk, **kw)
+    want = tq.apply_inference_int8(plan, qp, x, **kw)
+    assert len(trunk) == len(got) == 3
+    for t, g, w in zip(trunk, got, want):
+        assert torch.equal(g, w)
+        assert len(t) == 1 and t[0].dtype == torch.int8
+        assert tuple(t[0].shape[:3]) == tuple(g.shape[:3])
+
+
+def test_apply_inference_int8_head_layout(quantized):
+    # raw_heads=False gives (B, A, S, S, 5+C) f32, the raw NHWC heads reshaped
+    model, plan, _, _, qj = quantized
+    qp = qparams_from_numpy(plan, qj, "cpu")
+    x = torch.from_numpy(_x(1, 4))
+    kw = {"activation": model.cfg.activation, "compute_dtype": torch.float32}
+    raw = tq.apply_inference_int8(plan, qp, x, raw_heads=True, **kw)
+    shaped = tq.apply_inference_int8(plan, qp, x, **kw)
+    for r, s in zip(raw, shaped):
+        b, h, w, _ = r.shape
+        assert tuple(s.shape) == (b, 3, h, w, 7)
+        assert torch.equal(s, r.reshape(b, h, w, 3, 7).permute(0, 3, 1, 2, 4))

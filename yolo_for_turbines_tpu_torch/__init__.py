@@ -1,11 +1,12 @@
-"""PyTorch + CUDA port of the 416px serving path of yolo_for_turbines_tpu.
+"""PyTorch + CUDA port of the 416px serving path of yolo_for_turbines_tpu,
+bf16 and int8 PTQ.
 
 The JAX package beside this one is the reference; module names mirror it
-(``models/yolov3.py``, ``ops/nms.py``, ``inference.py``, ...). The two
-Pallas kernels on the serving path are hand-written CUDA kernels for Hopper
-(``csrc/*.cu``, built with nvcc for sm_90a at first use; see
-``ops/kernels/__init__.py``). CPU tensors take each kernel's plain torch
-version; CUDA tensors take the kernel or raise.
+(``models/yolov3.py``, ``ops/nms.py``, ``inference.py``, ...). Its four
+Pallas kernels are hand-written CUDA kernels for Hopper (``csrc/*.cu``,
+built with nvcc for sm_90a at first use; see ``ops/kernels/__init__.py``).
+CPU tensors take each kernel's plain torch version; CUDA tensors take the
+kernel or raise.
 
 This package imports torch and never jax.
 """

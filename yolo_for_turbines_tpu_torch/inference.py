@@ -7,6 +7,11 @@ survivors per image; ``predict_images`` and ``predict_image`` wrap it with
 letterbox and un-letterbox. On CUDA the 26x26x512 residual stage runs the
 fused kernel (``ops/kernels/resblock_kernel.py``) and NMS runs the fused
 greedy kernel (``ops/kernels/nms_kernel.py``).
+
+``quantize`` switches a predictor to the int8 PTQ path
+(``models/quantize.py``): the same three entry points then run the int8
+forward, whose 26x26x512 residual stage on CUDA is the fused int8 kernel
+(``ops/kernels/resblock_int8_kernel.py``), and the same decode and NMS.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from yolo_for_turbines_tpu import config as cfg
 from yolo_for_turbines_tpu.config import ModelConfig
 
 from .data.augment import letterbox, unletterbox_boxes
-from .models.convert import folded_from_numpy
+from .models.convert import folded_from_numpy, folded_to_numpy
+from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
 from .models.yolov3 import FoldedYOLOv3, build_plan
 from .ops.decode import decode_raw_all
 from .ops.nms import batched_nms, nms_to_list
@@ -59,8 +65,16 @@ class Predictor:
         nms_iou_threshold: float = cfg.NMS_IOU_THRESHOLD,
         max_boxes: int = 256,
         compute_dtype=None,
+        folded=None,
     ):
         self.device = torch.device(device)
+        # the full-precision folded tree (JAX layout) quantize() starts from:
+        # int8 scales and codes must not compound the compute-dtype cast
+        # below. from_folded hands over its tree (held, not copied); without
+        # one, quantize() reads the module, which must then stay f32.
+        self._folded_input = folded
+        self._qparams = None
+        self._packed = None
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.compute_dtype = compute_dtype
@@ -79,7 +93,45 @@ class Predictor:
         """Build from a folded tree in the JAX layout (``YOLOv3.fold`` output
         as numpy arrays; see ``models/convert.py``)."""
         model = folded_from_numpy(build_plan(model_cfg), folded, model_cfg)
-        return cls(model, device=device, **kwargs)
+        return cls(model, device=device, folded=folded, **kwargs)
+
+    def quantize(self, calib_batch) -> "Predictor":
+        """Switch this predictor to the int8 PTQ path: calibrate activation
+        scales on ``calib_batch`` ((N, S, S, 3) in [0, 1]) in f32 on the
+        predictor's device from the full-precision folded tree, quantize the
+        weights, and pack the serving operands once. Returns self."""
+        folded = self._folded_input
+        if folded is None:
+            if self.compute_dtype != torch.float32:
+                raise ValueError(
+                    "quantize() needs the full-precision weights: build the predictor "
+                    "with Predictor.from_folded (or pass folded=) when compute_dtype "
+                    f"is {self.compute_dtype}")
+            folded = folded_to_numpy(self.model)
+        x = torch.as_tensor(calib_batch, dtype=torch.float32).to(self.device)
+        self.set_qparams(quantize_folded(
+            self.model.plan, folded, x, self.model.cfg.activation))
+        return self
+
+    def set_qparams(self, qparams) -> None:
+        """Serve from a quantized tree (``quantize_folded`` or
+        ``models/convert.py::qparams_from_numpy`` output on this device);
+        the scale chain and kernel operands are packed here, once, for
+        ``image_size``."""
+        self._qparams = qparams
+        self._packed = pack_int8(self.model.plan, qparams, self.image_size, self.compute_dtype)
+
+    def raw_heads(self, x) -> List[torch.Tensor]:
+        """Raw NHWC heads, coarsest first, in ``compute_dtype``: the int8
+        forward once quantized, else the folded forward."""
+        with torch.inference_mode():
+            x = torch.as_tensor(x).to(self.device)
+            if self._qparams is None:
+                return self.model(x)
+            return apply_inference_int8(
+                self.model.plan, self._qparams, x, activation=self.model.cfg.activation,
+                raw_heads=True, compute_dtype=self.compute_dtype, packed=self._packed,
+            )
 
     def predict_batch(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, S, 3) float in [0, 1], numpy or tensor.
@@ -91,7 +143,7 @@ class Predictor:
             scaled_anchors = torch.from_numpy(
                 self.anchors * np.asarray(grid_sizes, np.float32).reshape(-1, 1, 1)
             ).to(self.device)
-            raw = self.model(x)
+            raw = self.raw_heads(x)
             boxes = decode_raw_all(
                 raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
             )

@@ -1,4 +1,5 @@
-"""Weight bridge: a folded tree in the JAX layout -> the torch module.
+"""Weight bridge: a folded tree in the JAX layout -> the torch module, and
+back; the JAX package's int8 tree -> the port's ``qparams``.
 
 The JAX package's ``fold_params`` (``models/yolov3.py``) gives a plan-aligned
 list of ``{"conv": {w, b}}``, ``{"blocks": [{"conv1", "conv2"}, ...]}``,
@@ -14,7 +15,18 @@ import torch
 
 from yolo_for_turbines_tpu.config import ModelConfig
 
-from .yolov3 import FoldedConv, FoldedYOLOv3, Head, Plan, ResidualStage
+from .yolov3 import (
+    _LATER,
+    FoldedConv,
+    FoldedYOLOv3,
+    Head,
+    Plan,
+    PlanConv,
+    PlanHead,
+    PlanResidual,
+    PlanUpsample,
+    ResidualStage,
+)
 
 
 def _to_f32(a) -> torch.Tensor:
@@ -54,3 +66,86 @@ def folded_from_numpy(plan: Plan, folded, cfg: ModelConfig) -> FoldedYOLOv3:
             _fill(layer.conv1, p["conv1"])
             _fill(layer.conv2, p["conv2"])
     return model
+
+
+def folded_to_numpy(model: FoldedYOLOv3) -> list:
+    """Inverse of :func:`folded_from_numpy`: the module's weights as a folded
+    tree in the JAX layout (HWIO), numpy in the weights' own precision
+    (f32 unless the module was cast)."""
+
+    def conv(c: FoldedConv) -> dict:
+        w = c.weight.detach().float().cpu().permute(2, 3, 1, 0)  # OIHW -> HWIO
+        return {"w": w.contiguous().numpy(), "b": c.bias.detach().float().cpu().numpy()}
+
+    folded = []
+    for layer in model.layers:
+        if isinstance(layer, FoldedConv):
+            folded.append({"conv": conv(layer)})
+        elif isinstance(layer, ResidualStage):
+            folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
+                                      for blk in layer.blocks]})
+        elif isinstance(layer, Head):
+            folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
+        else:
+            folded.append({})
+    return folded
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """int8 stays int8, every other array becomes f32, on ``device``."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        a = torch.from_numpy(np.array(a if a.dtype == np.int8 else a.astype(np.float32)))
+    return a.detach().to(device, torch.int8 if a.dtype == torch.int8 else torch.float32)
+
+
+def _check_shape(t: torch.Tensor, shape, what: str) -> torch.Tensor:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"quantized {what}: shape {tuple(t.shape)}, plan says {tuple(shape)}")
+    return t
+
+
+def qparams_from_numpy(plan: Plan, qtree, device) -> dict:
+    """The JAX package's quantized tree -> the port's ``qparams`` on ``device``.
+
+    ``qtree`` is ``models/quantize.py::quantize_folded`` output (or its
+    bundle copy): ``{"layers": [...], "scales": (n,)}`` with HWIO int8
+    weights ``wq`` / ``w1q`` / ``w2q``, f32 per-channel scales ``sw`` /
+    ``s1`` / ``s2`` and biases, and full-precision head weights. Leaves may
+    be numpy arrays, jax arrays or tensors. The result has the same
+    structure with int8 and f32 tensors, so both packages compute from the
+    same int8 numbers. Entries outside the Darknet-53 family raise."""
+    layers = qtree["layers"]
+    if len(layers) != len(plan):
+        raise ValueError(f"quantized tree has {len(layers)} entries, plan {len(plan)}")
+    out = []
+    for entry, p in zip(plan, layers):
+        if isinstance(entry, PlanConv):
+            k = entry.kernel
+            out.append({
+                "wq": _check_shape(_leaf(p["wq"], device),
+                                   (k, k, entry.in_ch, entry.out_ch), "conv weight"),
+                "sw": _check_shape(_leaf(p["sw"], device), (entry.out_ch,), "conv scale"),
+                "b": _check_shape(_leaf(p["b"], device), (entry.out_ch,), "conv bias"),
+            })
+        elif isinstance(entry, PlanResidual):
+            c, ch = entry.channels, entry.channels // 2
+            if len(p["blocks"]) != entry.num_blocks:
+                raise ValueError("quantized residual stage block count differs from the plan")
+            want = {"w1q": (1, 1, c, ch), "s1": (ch,), "b1": (ch,),
+                    "w2q": (3, 3, ch, c), "s2": (c,), "b2": (c,)}
+            out.append({"blocks": [
+                {k: _check_shape(_leaf(bp[k], device), s, f"block {k}") for k, s in want.items()}
+                for bp in p["blocks"]
+            ]})
+        elif isinstance(entry, PlanHead):
+            out.append({k: {"w": _leaf(p[k]["w"], device), "b": _leaf(p[k]["b"], device)}
+                        for k in ("conv1", "conv2")})
+        elif isinstance(entry, PlanUpsample):
+            out.append({})
+        else:
+            raise NotImplementedError(f"int8 plan entry {type(entry).__name__} {_LATER}")
+    scales = _leaf(qtree["scales"], device)
+    if scales.dim() != 1:
+        raise ValueError(f"quantized scales must be a vector, got {tuple(scales.shape)}")
+    return {"layers": out, "scales": scales}

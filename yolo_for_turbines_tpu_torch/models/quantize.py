@@ -1,0 +1,413 @@
+"""Post-training int8 quantization of the folded inference path, in PyTorch.
+
+Counterpart of ``yolo_for_turbines_tpu/models/quantize.py``, with the same
+recipe and the same quantized tree:
+
+- weights: symmetric per-output-channel int8 (``_wq``, the JAX package's
+  numpy code, so codes and scales are bit-identical);
+- activations: symmetric per-tensor int8, scales calibrated in f32 over a
+  representative batch (``calibrate``);
+- compute: s8 x s8 -> i32 products (im2col + ``torch._int_mm``; exact like
+  XLA's int32 convs), then an f32 epilogue of dequant, bias, activation,
+  residual add and requant in the JAX operation order;
+- heads run in ``compute_dtype`` from the dequantized trunk;
+- an upsample concat feeding a conv runs as two int8 convs on the split
+  weights, dequant-summed with per-branch scales ("conv" mode); one feeding
+  a head concats the dequantized branches ("head" mode).
+
+On CUDA the 26x26x512 residual stage runs the fused int8 kernel K4
+(``ops/kernels/resblock_int8_kernel.py``). The quantized tree is
+``{"layers": [...], "scales": (n,) f32}`` as in JAX (``models/convert.py::
+qparams_from_numpy`` reads the JAX package's); ``pack_int8`` turns it once
+into the per-layer operands ``apply_inference_int8`` consumes, so a serving
+call does no packing and no host sync.
+
+Only the Darknet-53 family is ported: CSP stages, max pools, routes and the
+"requant" concat mode raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.kernels.resblock_int8_kernel import (
+    apply_residual_stage_int8_fused,
+    int8_stage_wins,
+    int_mm,
+    pack_int8_stage,
+)
+from .blocks import get_activation
+from .convert import qparams_from_numpy
+from .yolov3 import _LATER, PlanConv, PlanHead, PlanResidual, PlanUpsample
+
+INPUT_SCALE = 1.0 / 127.0  # inputs are [0, 1]
+
+
+def _np32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _wq(w) -> tuple:
+    """Per-output-channel symmetric int8 weight quant: (wq, s_w[oc])."""
+    w = _np32(w)
+    s = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0
+    s = np.maximum(s, 1e-12)
+    wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return torch.from_numpy(wq), torch.from_numpy(s.astype(np.float32))
+
+
+def _unsupported(entry):
+    return NotImplementedError(f"int8 plan entry {type(entry).__name__} {_LATER}")
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """TF32 off for cuDNN convs and cuBLAS matmuls, restored afterwards."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
+    """Record each int8 tensor's max-abs over a representative batch, in the
+    order ``apply_inference_int8`` consumes them, in true f32 (TF32 off) on
+    ``x_calib``'s device; one host transfer at the end. ``folded`` is a
+    folded tree in the JAX layout (HWIO). Returns a tuple of per-tensor
+    scales (max/127)."""
+    act = get_activation(activation)
+    x = torch.as_tensor(x_calib)
+    dev = x.device
+
+    def conv(p, t, kernel, stride):
+        w = torch.tensor(_np32(p["w"]), device=dev).permute(3, 2, 0, 1)
+        b = torch.tensor(_np32(p["b"]), device=dev)
+        pad = 1 if kernel == 3 else 0
+        return act(F.conv2d(t, w, stride=stride, padding=pad) + b[:, None, None])
+
+    maxes: List[torch.Tensor] = []
+
+    def rec(t):
+        maxes.append(t.abs().amax())
+        return t
+
+    plan_t = tuple(plan)
+    routes = []
+    with torch.inference_mode(), _full_f32():
+        x = x.float().permute(0, 3, 1, 2)  # NCHW inside
+        for i, (entry, p) in enumerate(zip(plan_t, folded)):
+            if isinstance(entry, PlanConv):
+                x = rec(conv(p["conv"], x, entry.kernel, entry.stride))
+            elif isinstance(entry, PlanResidual):
+                for bp in p["blocks"]:
+                    y = rec(conv(bp["conv1"], x, 1, 1))
+                    y = conv(bp["conv2"], y, 3, 1)
+                    x = rec(x + y if entry.use_residual else y)
+                if entry.save_route:
+                    routes.append(x)
+            elif isinstance(entry, PlanHead):
+                pass  # heads run in compute_dtype; no int8 tensors
+            elif isinstance(entry, PlanUpsample):
+                if _concat_mode(plan_t[i + 1] if i + 1 < len(plan_t) else None) == "requant":
+                    raise _unsupported(entry)
+                up = F.interpolate(x, scale_factor=2, mode="nearest")
+                x = torch.cat([up, routes.pop()], dim=1)
+            else:
+                raise _unsupported(entry)
+        m = torch.stack(maxes).cpu().numpy()
+    return tuple(float(max(v, 1e-12)) / 127.0 for v in m)
+
+
+def _concat_mode(next_entry) -> str:
+    """How a channel concat's consumer handles two differently-scaled int8
+    branches: "conv" (split-weight int8 convs, dequant-summed), "head"
+    (the head concats the dequantized branches), "requant" (one shared
+    scale; not ported yet)."""
+    if isinstance(next_entry, PlanConv):
+        return "conv"
+    if isinstance(next_entry, PlanHead):
+        return "head"
+    return "requant"
+
+
+def _q_conv(p) -> dict:
+    wq, sw = _wq(p["w"])
+    return {"wq": wq, "sw": sw, "b": _np32(p["b"])}
+
+
+def _q_blocks(blocks) -> list:
+    out = []
+    for bp in blocks:
+        w1q, s1 = _wq(bp["conv1"]["w"])
+        w2q, s2 = _wq(bp["conv2"]["w"])
+        out.append({
+            "w1q": w1q, "s1": s1, "b1": _np32(bp["conv1"]["b"]),
+            "w2q": w2q, "s2": s2, "b2": _np32(bp["conv2"]["b"]),
+        })
+    return out
+
+
+def quantize_folded(plan, folded, x_calib, activation: str = "leaky_relu"):
+    """Quantize a folded tree (JAX layout) given a calibration batch.
+
+    Returns {"layers": [...], "scales": (n,) f32} on ``x_calib``'s device:
+    per-entry int8 weights and f32 epilogue constants, heads and weightless
+    entries in full precision, and the calibrated activation scales."""
+    scales = calibrate(plan, folded, x_calib, activation)
+    layers = []
+    for entry, p in zip(plan, folded):
+        if isinstance(entry, PlanConv):
+            layers.append(_q_conv(p["conv"]))
+        elif isinstance(entry, PlanResidual):
+            layers.append({"blocks": _q_blocks(p["blocks"])})
+        elif isinstance(entry, (PlanHead, PlanUpsample)):
+            layers.append(p)
+        else:
+            raise _unsupported(entry)
+    tree = {"layers": layers, "scales": np.asarray(scales, np.float32)}
+    return qparams_from_numpy(plan, tree, torch.as_tensor(x_calib).device)
+
+
+def _wmat(wq) -> torch.Tensor:
+    """HWIO s8 weight -> the (kh*kw*Cin, Cout) matrix ``_conv_i8`` takes,
+    rows zero-padded to a multiple of 8 (``torch._int_mm`` on CUDA wants
+    K % 8 == 0; the stem has 3*3*3 = 27). A contiguous weight that needs no
+    padding comes back as a view, sharing its storage."""
+    kh, kw, ci, co = wq.shape
+    m = wq.reshape(kh * kw * ci, co)
+    pad = -m.shape[0] % 8
+    return F.pad(m, (0, 0, 0, pad)) if pad else m.contiguous()
+
+
+def _conv_i8(xq, wmat, kernel: int, stride: int, pad: int):
+    """NHWC s8 x ``_wmat`` s8 -> NHWC i32, exact like XLA's int32 conv:
+    im2col in (kh, kw, Cin) order (``unfold`` views, one copy into a buffer
+    whose padding columns are zero), then ``int_mm``."""
+    b, h, w, c = xq.shape
+    kp, n = wmat.shape
+    if kernel == 1 and stride == 1 and kp == c:
+        return int_mm(xq.reshape(-1, c), wmat).view(b, h, w, n)
+    if pad:
+        xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    win = xq.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (B, Ho, Wo, C, kh, kw)
+    ho, wo = win.shape[1], win.shape[2]
+    k = kernel * kernel * c
+    cols = xq.new_empty(b, ho, wo, kp)
+    cols[..., :k].view(b, ho, wo, kernel, kernel, c).copy_(win.permute(0, 1, 2, 4, 5, 3))
+    cols[..., k:].zero_()
+    return int_mm(cols.view(-1, kp), wmat).view(b, ho, wo, n)
+
+
+def _requant(y_f, s_out):
+    return torch.round(y_f / s_out).clamp_(-127, 127).to(torch.int8)
+
+
+# in-place twins of the activations (the same kernels, one buffer fewer)
+_ACT_INPLACE = {
+    "leaky_relu": lambda t: F.leaky_relu_(t, 0.1),
+    "mish": lambda t: F.mish(t, inplace=True),
+}
+
+
+def _epilogue(y32, d, b, s_out, activation, residual=None, extra=None):
+    """Dequant + bias + activation (+ residual add) + requant, in f32 in the
+    JAX operation order, in place on one f32 buffer; ``extra`` = (y32b, db)
+    adds a second partial conv, ``residual`` = (rq, rs) the block input."""
+    y = y32.float().mul_(d)
+    if extra is not None:
+        y.add_(extra[0].float().mul_(extra[1]))
+    y = _ACT_INPLACE[activation](y.add_(b))
+    if residual is not None:
+        rq, rs = residual
+        y.add_(rq.float().mul_(rs))
+    return y.div_(s_out).round_().clamp_(-127, 127).to(torch.int8)
+
+
+def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu"):
+    """A quantized residual stage layer by layer (the path of every stage
+    the fused kernel is not routed to): per block an int8 1x1 and 3x3 conv,
+    each with its f32 epilogue. ``blocks`` from :func:`pack_int8_blocks`."""
+    for bq in blocks:
+        t1 = _epilogue(_conv_i8(xq, bq["w1"], 1, 1, 0), bq["d1"], bq["b1"], bq["s1"],
+                       activation)
+        res = (xq, bq["rs"]) if bq["rs"] is not None else None
+        xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1), bq["d2"], bq["b2"], bq["s2"],
+                       activation, residual=res)
+    return xq
+
+
+def _upsample2x(xq):
+    b, h, w, c = xq.shape
+    return xq[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def _head_weights(p, compute_dtype):
+    def oihw(a):
+        return a.permute(3, 2, 0, 1).to(compute_dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    return {"w1": oihw(p["conv1"]["w"]), "b1": p["conv1"]["b"].to(compute_dtype),
+            "w2": oihw(p["conv2"]["w"]), "b2": p["conv2"]["b"].to(compute_dtype)}
+
+
+def pack_int8_blocks(blocks_q, s_in, s1_list, s2_list, use_residual: bool) -> list:
+    """Per-block operands of the layer-by-layer path
+    (:func:`residual_blocks_int8`): ``_wmat`` weights, ``d = s_in * s_w``
+    rows, and each block's mid/out/residual scales. ``blocks_q`` is in the
+    ``_q_blocks`` layout; the scales are f32 0-dim tensors."""
+    out, s_x = [], s_in
+    for bp, s1_out, s2_out in zip(blocks_q, s1_list, s2_list):
+        out.append({
+            "w1": _wmat(bp["w1q"]), "d1": s_x * bp["s1"], "b1": bp["b1"], "s1": s1_out,
+            "w2": _wmat(bp["w2q"]), "d2": s1_out * bp["s2"], "b2": bp["b2"], "s2": s2_out,
+            "rs": s_x if use_residual else None,
+        })
+        s_x = s2_out
+    return out
+
+
+def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> list:
+    """Walk the plan once over ``qparams`` and fold the calibrated scale
+    chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
+    tensors for the layer path (weights as views of ``qparams``' where no
+    padding is needed), K4's stacked operands for each residual stage the
+    router sends to K4 at ``image_size`` (None elsewhere), head weights in
+    ``compute_dtype``. The f32 arithmetic is the JAX function's; everything
+    stays on the qparams' device."""
+    scales = qparams["scales"]
+    si = iter(range(scales.shape[0]))
+    s_x = torch.tensor(INPUT_SCALE, dtype=torch.float32, device=scales.device)
+    packed = [{"s_in": s_x}]
+    routes = []  # scales of the saved routes
+    pending = None  # (s_a, s_b) of an upsample concat, (channels of a)
+    hw = image_size  # spatial size of the trunk at the current entry
+    plan_t = tuple(plan)
+    for i, (entry, p) in enumerate(zip(plan_t, qparams["layers"])):
+        nxt = plan_t[i + 1] if i + 1 < len(plan_t) else None
+        if isinstance(entry, PlanConv):
+            pad = 1 if entry.kernel == 3 else 0
+            hw = (hw + 2 * pad - entry.kernel) // entry.stride + 1
+            s_out = scales[next(si)]
+            q = {"kernel": entry.kernel, "stride": entry.stride, "pad": pad, "b": p["b"],
+                 "s_out": s_out}
+            if pending is not None:
+                (s_a, s_b), ca = pending
+                pending = None
+                q["wa"], q["wb"] = _wmat(p["wq"][:, :, :ca]), _wmat(p["wq"][:, :, ca:])
+                q["da"], q["db"] = s_a * p["sw"], s_b * p["sw"]
+            else:
+                q["w"], q["d"] = _wmat(p["wq"]), s_x * p["sw"]
+            s_x = s_out
+        elif isinstance(entry, PlanResidual):
+            # the stream interleaves (s1, s2) per block
+            pairs = [(scales[next(si)], scales[next(si)]) for _ in p["blocks"]]
+            s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
+            routed = entry.use_residual and int8_stage_wins(hw, hw, entry.channels)
+            q = {"blocks": pack_int8_blocks(p["blocks"], s_x, s1_list, s2_list,
+                                            entry.use_residual),
+                 "stage": (pack_int8_stage(p["blocks"], s_x, s1_list, s2_list)
+                           if routed else None)}
+            s_x = s2_list[-1]
+            if entry.save_route:
+                routes.append(s_x)
+        elif isinstance(entry, PlanHead):
+            q = _head_weights(p, compute_dtype)
+            if pending is not None:
+                (q["s_a"], q["s_b"]), _ = pending
+                pending = None
+            else:
+                q["s"] = s_x
+        elif isinstance(entry, PlanUpsample):
+            if _concat_mode(nxt) == "requant":
+                raise _unsupported(entry)
+            pending = ((s_x, routes.pop()), entry.in_ch)
+            hw *= 2
+            q = {}
+        else:
+            raise _unsupported(entry)
+        packed.append(q)
+    return packed
+
+
+def _head_reshape(y, num_classes: int, anchors: int):
+    """(B,S,S,A*(5+C)) -> (B,A,S,S,5+C) f32."""
+    b, h, w, _ = y.shape
+    return y.float().reshape(b, h, w, anchors, num_classes + 5).permute(0, 3, 1, 2, 4)
+
+
+def apply_inference_int8(
+    plan,
+    qparams,
+    x,
+    activation: str = "leaky_relu",
+    raw_heads: bool = False,
+    compute_dtype=torch.bfloat16,
+    portable: bool = False,
+    packed: Optional[list] = None,
+    head_inputs: Optional[list] = None,
+):
+    """int8 twin of the folded forward over ``quantize_folded`` output.
+
+    x: (B, S, S, 3) float in [0, 1] on the qparams' device. Returns one head
+    per scale, coarsest first: raw NHWC heads in ``compute_dtype`` with
+    ``raw_heads``, else (B, A, S, S, 5+C) f32. ``portable=True`` skips the
+    fused-stage router. ``packed`` is ``pack_int8(plan, qparams, S,
+    compute_dtype)``, made here when not given. ``head_inputs``, when a
+    list, receives per head the s8 trunk tensors it reads (two for a concat
+    head), so a caller can check what the int8 trunk decided."""
+    act = get_activation(activation)
+    if packed is None:
+        packed = pack_int8(plan, qparams, x.shape[1], compute_dtype)
+
+    with torch.inference_mode():
+        xq = _requant(torch.as_tensor(x).float(), packed[0]["s_in"])
+        preds, routes = [], []
+        pending = None  # (upsampled trunk, route) of an upsample concat
+        for entry, q in zip(plan, packed[1:]):
+            if isinstance(entry, PlanConv):
+                geom = q["kernel"], q["stride"], q["pad"]
+                if pending is not None:
+                    aq, bq = pending
+                    pending = None
+                    xq = _epilogue(_conv_i8(aq, q["wa"], *geom), q["da"], q["b"], q["s_out"],
+                                   activation, extra=(_conv_i8(bq, q["wb"], *geom), q["db"]))
+                else:
+                    xq = _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"],
+                                   activation)
+            elif isinstance(entry, PlanResidual):
+                fused = None
+                if q["stage"] is not None and not portable:
+                    fused = apply_residual_stage_int8_fused(q["stage"], xq, activation)
+                xq = fused if fused is not None else residual_blocks_int8(
+                    xq, q["blocks"], activation)
+                if entry.save_route:
+                    routes.append(xq)
+            elif isinstance(entry, PlanHead):
+                trunk = pending if pending is not None else (xq,)
+                pending = None
+                if head_inputs is not None:
+                    head_inputs.append(trunk)
+                parts = [(t.float() * s).to(compute_dtype) for t, s in zip(
+                    trunk, (q["s_a"], q["s_b"]) if len(trunk) == 2 else (q["s"],))]
+                xf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+                y = F.conv2d(xf.permute(0, 3, 1, 2), q["w1"], padding=1)
+                y = act(y + q["b1"][:, None, None])
+                y = F.conv2d(y, q["w2"]) + q["b2"][:, None, None]
+                y = y.permute(0, 2, 3, 1)
+                preds.append(y if raw_heads else _head_reshape(
+                    y, entry.num_classes, entry.anchors_per_scale))
+            elif isinstance(entry, PlanUpsample):
+                pending = (_upsample2x(xq), routes.pop())
+            else:
+                raise _unsupported(entry)
+    return preds

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` for ``sm_90a`` (Hopper) into one shared
-library with a plain C interface under ``yolo_for_turbines_tpu_torch/_build/``
+Each source compiles with ``nvcc`` for ``sm_90a`` (Hopper), one process per
+source, all started together; the objects link into one shared library with
+a plain C interface under ``yolo_for_turbines_tpu_torch/_build/``
 (git-ignored), at first use and again whenever a source is newer than the
 library, the way ``yolo_for_turbines_tpu/native`` builds its packer. The
 library is loaded with ``ctypes``: every pointer and the stream travel as
@@ -32,7 +33,7 @@ LIBRARY = BUILD_DIR / "libyolo_kernels.so"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -50,6 +51,12 @@ _SIGNATURES = {
     "resblock_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "resblock_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "resblock_pad_pixels": ([_I, _I], _I),
+    # x, w1, d1, b1, vm1, w2, d2, b2, vout, rres, out, batch, H, W, C, act, stream
+    "resblock_int8_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "resblock_int8_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "resblock_int8_pad_pixels": ([_I, _I], _I),
+    # boxes, k, out, stream
+    "pairwise_iou_launch": ([_P, _I, _P, _P], _I),
 }
 
 
@@ -81,19 +88,44 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in sources())
 
 
+def _run(procs, what: str) -> None:
+    """Wait for every (cmd, Popen); raise with the stderr of the failures."""
+    errors = []
+    for cmd, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError(f"{what}:\n" + "\n".join(errors))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> float:
-    """Compile every ``csrc/*.cu`` into the library; returns seconds taken."""
+    """Compile every ``csrc/*.cu`` (in parallel) and link the library;
+    returns seconds taken."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIBRARY.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = BUILD_DIR / f".{LIBRARY.name}.{pid}.tmp"
+    objects = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
+    try:
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+              for src, obj in zip(sources(), objects)], "compiling csrc")
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objects)])], "linking the kernel library")
+        os.replace(tmp, LIBRARY)  # atomic: a concurrent build never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent build never sees half a file
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

@@ -1,8 +1,10 @@
 """Read the serving bundles the JAX package writes (``serving.save_predictor``).
 
 A bundle directory holds ``manifest.json`` (format version, model config,
-predictor knobs, the pytree spec of the folded weights) and ``folded.npz``
-(full-precision folded weights). This reader needs numpy and torch only.
+predictor knobs, the pytree specs of the weights), ``folded.npz``
+(full-precision folded weights) and, for a quantized predictor,
+``quantized.npz`` (the int8 PTQ tree of ``models/quantize.py``). This reader
+needs numpy and torch only.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from yolo_for_turbines_tpu.config import ModelConfig
 
 from .inference import Predictor
+from .models.convert import qparams_from_numpy
 
 FORMAT_VERSION = 1
 
@@ -58,7 +61,8 @@ def _tuplify(x):
 def load_predictor_bundle(path, device, compute_dtype=None) -> Predictor:
     """Rebuild a Predictor on ``device`` from a bundle directory.
 
-    ``compute_dtype`` defaults to the one the bundle was saved with."""
+    ``compute_dtype`` defaults to the one the bundle was saved with. A
+    bundle with a quantized tree gives a predictor that serves int8."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     if manifest["format_version"] > FORMAT_VERSION:
@@ -66,12 +70,6 @@ def load_predictor_bundle(path, device, compute_dtype=None) -> Predictor:
             f"bundle format {manifest['format_version']} is newer than this "
             f"reader's {FORMAT_VERSION}"
         )
-    if "quantized_spec" in manifest:
-        raise NotImplementedError(
-            "bundle holds an int8 (quantized) tree; int8 serving is not "
-            "ported yet (it comes with the int8 PTQ slice of the port)"
-        )
-
     m = dict(manifest["model"])
     m["strides"] = _tuplify(m["strides"])
     if m.get("layer_config") is not None:
@@ -84,7 +82,7 @@ def load_predictor_bundle(path, device, compute_dtype=None) -> Predictor:
     p = manifest["predictor"]
     if compute_dtype is None:
         compute_dtype = _DTYPES[p["compute_dtype"]]
-    return Predictor.from_folded(
+    pred = Predictor.from_folded(
         model_cfg,
         folded,
         device=device,
@@ -95,3 +93,8 @@ def load_predictor_bundle(path, device, compute_dtype=None) -> Predictor:
         max_boxes=p["max_boxes"],
         compute_dtype=compute_dtype,
     )
+    if "quantized_spec" in manifest:
+        with np.load(path / "quantized.npz") as z:
+            qtree = spec_to_tree(manifest["quantized_spec"], z)
+        pred.set_qparams(qparams_from_numpy(pred.model.plan, qtree, pred.device))
+    return pred

@@ -1,0 +1,98 @@
+"""Where the device time of ``Predictor.predict_batch`` goes (``torch.profiler``).
+
+    python -m yolo_for_turbines_tpu_torch.tools.profile_serving [--batch 128] [--out FILE]
+
+builds the 80-class Darknet-53 YOLOv3 at 416px from seeded random weights
+(as ``chip_smoke.py`` does), profiles ``predict_batch`` in bf16, then
+quantizes it (int8 PTQ, calibrated on 8 seeded images) and profiles the int8
+path. Per path it prints one JSON line (wall ms per batch, device-busy ms per
+batch, the device's idle share) and the kernels with the most device time;
+``--out`` also gets ``torch.profiler``'s full table. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+
+def profile_predict_batch(pred, x, iters: int = 2, warmup: int = 3, top: int = 12):
+    """Profile ``iters`` calls of ``pred.predict_batch(x)`` after ``warmup``.
+
+    Returns (summary, table): summary has ``wall_ms`` and ``device_busy_ms``
+    per call (the device-side events' time; 0 on the CPU), ``idle_share``
+    = 1 - busy / wall, and ``top``, the kernels and copies with the most
+    device time per call as [name, ms, launches per call]; table is the
+    profiler's own."""
+    cuda = torch.device(pred.device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    for _ in range(warmup):
+        pred.predict_batch(x)
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pred.predict_batch(x)
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    ka = prof.key_averages()
+    # device-side events only: an aten op also carries its kernels' time
+    kernels = [e for e in ka if e.device_type != DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    summary = {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "top": [[e.key, e.self_device_time_total / 1e3 / iters, e.count // iters]
+                for e in rows if e.self_device_time_total > 0],
+    }
+    table = ka.table(sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
+                     row_limit=25, max_name_column_width=70)
+    return summary, table
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--out", default=None, help="also write the profiler tables here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+
+    from yolo_for_turbines_tpu.config import ModelConfig
+
+    from ..inference import Predictor
+    from ..models.yolov3 import build_plan, init_plan
+
+    dev = torch.device("cuda", 0)
+    model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
+    tree = init_plan(build_plan(model_cfg), torch.Generator().manual_seed(0))
+    pred = Predictor.from_folded(model_cfg, tree, device=dev)
+    size = pred.image_size
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(args.batch, size, size, 3)).astype(np.float32)).to(dev)
+    calib = np.random.default_rng(1).uniform(size=(8, size, size, 3)).astype(np.float32)
+    tables = []
+    for path in ("bf16", "int8"):
+        if path == "int8":
+            pred.quantize(calib)
+        summary, table = profile_predict_batch(pred, x)
+        print(json.dumps({"path": path, "batch": args.batch, **summary}), flush=True)
+        tables.append(f"== {path}, B={args.batch}\n{table}")
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(tables))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
