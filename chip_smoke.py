@@ -8,9 +8,13 @@ Phases, one JSON line each:
   build   nvcc build of csrc/*.cu (sm_90a) into the git-ignored _build/;
   k1      fused greedy NMS against its plain torch version, B in {1, 8, 128}:
           keep masks must be equal; CUDA-event times at B = 1 and 128;
-  k2      fused residual block against its plain torch version in bf16 at the
-          five Darknet-53 residual geometries (leaky and mish); times of the
-          26x26x512 stage at B = 8 and 128;
+  k2      fused residual block (wgmma + TMA) against its plain torch version
+          in bf16 at the geometries the wrapper takes (C = 512, W <= 32;
+          leaky and mish, B = 2) and at the timed 26x26x512 stage for B = 8
+          and 128; the wrapper must refuse the other Darknet-53 geometries;
+          times of the 26x26x512 stage at B = 8 and 128 beside its bound and
+          the cuDNN layer path; HGMMA and UTMALDG instructions of the built
+          kernel counted in cuobjdump's SASS (both must be present);
   k3      pairwise IoU against its plain torch version, K in {256, 1000,
           4096}, center and top-left boxes: matrices must be equal bit for
           bit; CUDA-event times at K = 256 and 4096;
@@ -30,7 +34,10 @@ Phases, one JSON line each:
           port's int8 CPU forward of the same qparams the s8 trunk codes
           each head reads must agree and the raw heads must agree (cosine).
 Both main phases also count K3's launches (no serving path calls it).
-Then the kernel table as one JSON line, the nvidia-smi line, and last
+Then the kernel table as one JSON line (each kernel's time beside its
+bound from this run's inputs: bytes over 3.35 TB/s or operations over the
+peak of their type, whichever is larger; the published H100 SXM
+figures), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit).
 """
 
@@ -40,6 +47,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,6 +57,14 @@ K = 256
 N_CAND = 10647  # candidates per image at 416px: 3 * (13^2 + 26^2 + 52^2)
 # (H = W, C, blocks) of the Darknet-53 residual stages at 416px
 GEOMETRIES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
+# (H, W, blocks) K2 is checked at, all with C = 512: the 16x16 to 32x32 range
+# the router sends it (320-512px inputs) and a non-square tile edge
+K2_GEOMETRIES = ((16, 16, 2), (20, 20, 2), (26, 26, 8), (32, 32, 2), (13, 29, 2))
+# Published peak rates of one H100 SXM at 700 W, for bounds
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+F32_FLOPS = 67e12
 # K2 tolerance: max |kernel - plain| <= K2_TOL * max |plain|. Both round mid
 # and each block's output to bf16 (2^-8 relative spacing) after f32 sums taken
 # in different orders, so single elements may differ by one bf16 step and the
@@ -149,13 +165,37 @@ def phase_k1(dev, gen):
                 iters=50, plain_iters=3,
             )
             out[f"B{batch}_ms"], out[f"B{batch}_plain_ms"] = ms, plain_ms
+        if batch == 128:
+            bound = nms_bound(cand, valid, got)
+    out["B128_bound_ms"], out["B128_bound_by"] = bound
     emit(out)
-    return {"max_abs_err": 0.0, "ms": out["B128_ms"], "plain_ms": out["B128_plain_ms"]}
+    return {"max_abs_err": 0.0, "ms": out["B128_ms"], "plain_ms": out["B128_plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+def bound_of(nbytes: float, ops: float, peak: float):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nms_bound(cand, valid, keep):
+    """K1: reads the candidates and validity, writes the keep mask; each kept
+    box i is tested against the K - 1 - i boxes after it (about 20 f32
+    operations per IoU test), as this run's keep masks say."""
+    b, k = valid.shape
+    nbytes = cand.numel() * 4 + valid.numel() + keep.numel()
+    after = torch.arange(k - 1, -1, -1, device=keep.device)
+    tests = float((keep.to(after.dtype) * after).sum())
+    return bound_of(nbytes, 20.0 * tests, F32_FLOPS)
 
 
 def stage_inputs(batch, hw, c, n, gen, dev):
+    """Seeded bf16 operands of an n-block stage; hw is H = W or (H, W)."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     ch = c // 2
-    x = torch.randn(batch, hw, hw, c, generator=gen).to(dev, torch.bfloat16)
+    x = torch.randn(batch, h, w, c, generator=gen).to(dev, torch.bfloat16)
     w1 = (torch.randn(n, c, ch, generator=gen) / c ** 0.5).to(dev, torch.bfloat16)
     b1 = (0.1 * torch.randn(n, ch, generator=gen)).to(dev)
     w2 = (0.5 * torch.randn(n, 3, 3, ch, c, generator=gen) / (9 * ch) ** 0.5).to(
@@ -182,41 +222,94 @@ def layer_path(x, w1, b1, w2, b2, activation):
     return x
 
 
+def stage_bound(x, w1, w2, peak):
+    """A residual stage of n blocks: 2 * positions * (C * C/2 + 9 * C/2 * C)
+    operations per block; x read and the output written once, each block's
+    weights and biases read once."""
+    b, h, w, c = x.shape
+    n, ch = w1.shape[0], c // 2
+    ops = 2.0 * b * h * w * (c * ch + 9 * ch * c) * n
+    nbytes = 2 * x.numel() * x.element_size() + (w1.numel() + w2.numel()) * w1.element_size() \
+        + n * (ch + c) * 4
+    return bound_of(nbytes, ops, peak)
+
+
+def sass_counts(fragment: str, ops):
+    """Counts of each SASS opcode in `ops` in the built library's kernel whose
+    name contains `fragment` (cuobjdump -sass)."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.LIBRARY)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {op: 0 for op in ops}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+        elif fragment in name:
+            for op in ops:
+                counts[op] += f" {op}" in line
+    return counts
+
+
 def phase_k2(dev, gen):
     from yolo_for_turbines_tpu_torch.ops.kernels import resblock_kernel as rk
 
     out = {"phase": "k2", "kernel": "fused_residual_stage", "tol_rel_to_max": K2_TOL,
            "checks": []}
+    out["sass"] = sass_counts("resblock_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    if not all(out["sass"].values()):
+        emit(out)
+        raise AssertionError(f"K2 is not built on wgmma and TMA: {out['sass']}")
     worst = 0.0
-    cases = [(g, 2) for g in GEOMETRIES] + [((26, 512, 8), 8)]
+
+    def check(args, activation, what):
+        nonlocal worst
+        got = rk.fused_residual_stage(*args, activation=activation)
+        torch.cuda.synchronize()
+        want = rk.fused_residual_stage_reference(*args, activation=activation)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        out["checks"].append({**what, "act": activation, "max_abs_err": err, "ref_max": scale})
+        worst = max(worst, err)
+        if not err <= K2_TOL * scale:
+            emit(out)
+            raise AssertionError(f"K2 differs from plain: {out['checks'][-1]}")
+
     for activation in ("leaky_relu", "mish"):
-        for (hw, c, n), batch in cases:
-            args = stage_inputs(batch, hw, c, n, gen, dev)
-            got = rk.fused_residual_stage(*args, activation=activation)
-            torch.cuda.synchronize()
-            want = rk.fused_residual_stage_reference(*args, activation=activation)
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            out["checks"].append({"act": activation, "hw": hw, "c": c, "n": n, "B": batch,
-                                  "max_abs_err": err, "ref_max": scale})
-            worst = max(worst, err)
-            if not err <= K2_TOL * scale:
-                emit(out)
-                raise AssertionError(f"K2 differs from plain: {out['checks'][-1]}")
+        for h, w, n in K2_GEOMETRIES:
+            batch = 8 if (h, w) == (26, 26) else 2
+            check(stage_inputs(batch, (h, w), 512, n, gen, dev), activation,
+                  {"h": h, "w": w, "c": 512, "n": n, "B": batch})
+    # the wrapper takes nothing else: no fallback for the other stages
+    for hw, c, _ in GEOMETRIES:
+        if c != 512:
+            try:
+                rk.fused_residual_stage(*stage_inputs(1, hw, c, 1, gen, dev))
+            except ValueError:
+                continue
+            raise AssertionError(f"K2 took the geometry {hw}x{hw}x{c}")
     for batch in (8, 128):
         args = stage_inputs(batch, 26, 512, 8, gen, dev)
+        if batch == 128:  # the timed shape is held against the plain version too
+            check(args, "leaky_relu", {"h": 26, "w": 26, "c": 512, "n": 8, "B": batch})
         ms, plain_ms = ab_ms(
             lambda: rk.fused_residual_stage(*args, activation="leaky_relu"),
             lambda: rk.fused_residual_stage_reference(*args, activation="leaky_relu"),
             iters=10, plain_iters=3,
         )
-        out[f"26x26x512_B{batch}_ms"] = ms
-        out[f"26x26x512_B{batch}_plain_ms"] = plain_ms
-        out[f"26x26x512_B{batch}_bf16_layers_ms"] = cuda_ms(
-            lambda: layer_path(*args, "leaky_relu"), 10)
+        key = f"26x26x512_B{batch}"
+        out[f"{key}_ms"] = ms
+        out[f"{key}_plain_ms"] = plain_ms
+        out[f"{key}_bf16_layers_ms"] = cuda_ms(lambda: layer_path(*args, "leaky_relu"), 10)
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = stage_bound(args[0], args[1], args[3],
+                                                                     BF16_FLOPS)
+        out[f"{key}_share_of_bound"] = out[f"{key}_bound_ms"] / ms
     emit(out)
     return {"max_abs_err": worst, "ms": out["26x26x512_B128_ms"],
-            "plain_ms": out["26x26x512_B128_plain_ms"]}
+            "plain_ms": out["26x26x512_B128_plain_ms"],
+            "bound_ms": out["26x26x512_B128_bound_ms"],
+            "bound_by": out["26x26x512_B128_bound_by"], "library_ms": None}
 
 
 def phase_k3(dev, gen):
@@ -249,8 +342,14 @@ def phase_k3(dev, gen):
             # top-left input: the wrapper converts nothing, so this is the
             # kernel plus the wrapper's own host work
             out[f"K{k}_top_left_ms"] = cuda_ms(lambda: ik.pairwise_iou(boxes, "top_left"), 50)
+    # K = 4096: the boxes read once, the K x K f32 matrix written once, about
+    # 15 f32 operations per pair
+    out["K4096_bound_ms"], out["K4096_bound_by"] = bound_of(
+        4096 * 4 * 4 + 4096 * 4096 * 4, 15.0 * 4096 * 4096, F32_FLOPS)
     emit(out)
-    return {"max_abs_err": worst, "ms": out["K4096_ms"], "plain_ms": out["K4096_plain_ms"]}
+    return {"max_abs_err": worst, "ms": out["K4096_ms"], "plain_ms": out["K4096_plain_ms"],
+            "bound_ms": out["K4096_bound_ms"], "bound_by": out["K4096_bound_by"],
+            "library_ms": None}
 
 
 def int8_stage_inputs(rng, batch, hw, c, n, dev):
@@ -317,6 +416,8 @@ def phase_k4(dev, rng):
         )
         out[f"26x26x512_B{batch}_ms"] = ms
         out[f"26x26x512_B{batch}_plain_ms"] = plain_ms
+        out[f"26x26x512_B{batch}_bound_ms"], out[f"26x26x512_B{batch}_bound_by"] = stage_bound(
+            xq, ops[0], ops[4], INT8_OPS)
         out[f"26x26x512_B{batch}_int8_layers_ms"] = cuda_ms(
             lambda: tq.residual_blocks_int8(xq, layers), 10)
         # the layer path divides by the scales where the kernel multiplies
@@ -330,11 +431,13 @@ def phase_k4(dev, rng):
                 "frac_differing": float((diff != 0).float().mean()), "max_codes": int(diff.max())}
     emit(out)
     return {"max_abs_err": float(worst), "ms": out["26x26x512_B128_ms"],
-            "plain_ms": out["26x26x512_B128_plain_ms"]}
+            "plain_ms": out["26x26x512_B128_plain_ms"],
+            "bound_ms": out["26x26x512_B128_bound_ms"],
+            "bound_by": out["26x26x512_B128_bound_by"], "library_ms": None}
 
 
 def full_model():
-    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
     from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
 
     model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky

@@ -122,11 +122,11 @@ def _as_port_plan(jax_plan):
 
 def test_full_plan_matches_jax():
     """The 80-class Darknet-53 plan (pure Python, no forward) is the JAX one."""
-    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu.config import ModelConfig as JaxModelConfig
     from yolo_for_turbines_tpu.models.yolov3 import YOLOv3
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
 
-    cfg = ModelConfig()
-    assert build_plan(cfg) == tuple(_as_port_plan(YOLOv3(cfg).plan))
+    assert build_plan(ModelConfig()) == tuple(_as_port_plan(YOLOv3(JaxModelConfig()).plan))
     assert build_plan(ModelConfig(layer_config=MINI_LAYERS)) == tuple(
         _as_port_plan(mini_model(num_classes=80).plan)
     )
@@ -134,7 +134,7 @@ def test_full_plan_matches_jax():
 
 @pytest.mark.parametrize("backbone", ["cspdarknet53", "yolov3_tiny"])
 def test_other_families_raise(backbone):
-    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
 
     with pytest.raises(NotImplementedError, match="later slice"):
         build_plan(ModelConfig(backbone=backbone))

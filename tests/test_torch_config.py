@@ -1,0 +1,57 @@
+"""Torch port: its own copies of the JAX package's config and letterbox
+packer (``yolo_for_turbines_tpu_torch/config.py``, ``native/``) agree with
+the originals, so the port never needs to import them."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from yolo_for_turbines_tpu import config as jax_cfg
+from yolo_for_turbines_tpu import native as jax_native
+from yolo_for_turbines_tpu_torch import config as cfg
+from yolo_for_turbines_tpu_torch import native
+
+
+def test_model_config_fields_match_jax():
+    want = [(f.name, f.type, f.default) for f in dataclasses.fields(jax_cfg.ModelConfig)]
+    got = [(f.name, f.type, f.default) for f in dataclasses.fields(cfg.ModelConfig)]
+    assert got == want
+    assert cfg.ModelConfig().channels_per_anchor == jax_cfg.ModelConfig().channels_per_anchor
+
+
+@pytest.mark.parametrize(
+    "name", ["ANCHORS", "DEF_IMAGE_SIZE", "CONF_THRESHOLD", "NMS_IOU_THRESHOLD",
+             "STRIDES", "NUM_COCO_CLASSES"])
+def test_constants_match_jax(name):
+    assert getattr(cfg, name) == getattr(jax_cfg, name)
+
+
+@pytest.mark.parametrize("size", [320, 416, 608])
+def test_grid_sizes_match_jax(size):
+    assert cfg.grid_sizes_for(size) == jax_cfg.grid_sizes_for(size)
+    assert cfg.grid_sizes_for(size, (32, 16)) == jax_cfg.grid_sizes_for(size, (32, 16))
+
+
+def test_bundle_manifest_builds_both():
+    # what serving.save_predictor writes (JSON turns tuples into lists; the
+    # bundle reader turns them back)
+    manifest = dataclasses.asdict(jax_cfg.ModelConfig(num_classes=2, activation="mish"))
+    manifest["strides"] = tuple(manifest["strides"])
+    got, want = cfg.ModelConfig(**manifest), jax_cfg.ModelConfig(**manifest)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.channels_per_anchor == 7
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (300, 500), (720, 400), (416, 416)])
+def test_letterbox_packer_matches_jax_bit_for_bit(hw):
+    rng = np.random.default_rng(sum(hw))
+    images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8),
+              rng.integers(0, 256, (hw[1], hw[0], 3), dtype=np.uint8)]
+    if jax_native.load_library() is None:
+        pytest.fail("the JAX package's packer did not build: g++ is needed here")
+    want = jax_native.batch_letterbox(images, 416, num_threads=2)
+    got = native.batch_letterbox(images, 416, num_threads=2)
+    assert got is not None, "the port's letterbox packer did not build"
+    assert got.dtype == np.float32 and got.shape == (2, 416, 416, 3)
+    np.testing.assert_array_equal(got, want)

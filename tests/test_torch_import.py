@@ -1,5 +1,5 @@
-"""Torch port: importing it and serving with it, folded and int8, leaves jax
-unimported.
+"""Torch port: importing it and serving with it, folded and int8, imports
+neither jax nor any module of the JAX package (yolo_for_turbines_tpu).
 
 Runs in a subprocess because this test process has jax loaded already
 (tests/conftest.py).
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 import yolo_for_turbines_tpu_torch
-from yolo_for_turbines_tpu.config import ModelConfig
+from yolo_for_turbines_tpu_torch.config import ModelConfig
 from yolo_for_turbines_tpu_torch import inference, serving
 from yolo_for_turbines_tpu_torch.tools import profile_serving
 from yolo_for_turbines_tpu_torch.models import quantize
@@ -34,15 +34,19 @@ plan = build_plan(cfg)
 model = folded_from_numpy(plan, init_plan(plan, torch.Generator().manual_seed(0)), cfg)
 pred = inference.Predictor(model, device="cpu", image_size=64, max_boxes=8)
 x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+images = [np.random.default_rng(1).integers(0, 256, (48, 80, 3), dtype=np.uint8)]
 kept, mask = pred.predict_batch(x)
 assert tuple(kept.shape) == (2, 8, 6) and mask.dtype == torch.bool
 assert bool(torch.isfinite(kept).all())
+assert len(pred.predict_images(images)) == 1  # the host letterbox packer too
 pred.quantize(x)  # the int8 path: calibrate, quantize, serve
 kept, mask = pred.predict_batch(x)
 assert tuple(kept.shape) == (2, 8, 6) and bool(torch.isfinite(kept).all())
+assert len(pred.predict_images(images)) == 1
 iou = iou_kernel.pairwise_iou(torch.rand(5, 4))
 assert tuple(iou.shape) == (5, 5)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
 assert not bad, bad
 print("OK")
 """

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_for_turbines_tpu.config import ModelConfig
+from yolo_for_turbines_tpu_torch.config import ModelConfig
 from yolo_for_turbines_tpu_torch.tools import profile_serving
 from yolo_for_turbines_tpu_torch.inference import Predictor
 from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan

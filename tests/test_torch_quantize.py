@@ -126,7 +126,7 @@ def test_apply_inference_int8_matches_jax(quantized):
 def wide_stage():
     """A plan with one 512-channel residual stage at half the input size,
     quantized from seeded weights on the CPU."""
-    from yolo_for_turbines_tpu.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
     from yolo_for_turbines_tpu_torch.models.yolov3 import init_plan
 
     cfg = ModelConfig(num_classes=2,

@@ -127,3 +127,33 @@ def test_model_stage_fused_route_matches_layers(activation):
         fused = stage(x, act, activation, fuse=True)
         layers = stage(x, act, activation, fuse=False)
     np.testing.assert_allclose(fused.numpy(), layers.numpy(), rtol=RTOL, atol=ATOL)
+
+
+# Darknet-53's residual stages: (stride, channels)
+_STAGES = ((2, 64), (4, 128), (8, 256), (16, 512), (32, 1024))
+
+
+def _meta_stage(h, w, c, n=2):
+    ch = c // 2
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return (t(1, h, w, c), t(n, c, ch), t(n, ch, dtype=torch.float32),
+            t(n, 3, 3, ch, c), t(n, c, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("size", range(320, 609, 32))
+def test_routed_geometries_pass_the_wrapper_check(size):
+    # every stage the router sends to the kernel at this input size passes
+    # the wrapper's geometry check; the others raise it
+    for stride, c in _STAGES:
+        hw = size // stride
+        if rk.stage_wins(hw, hw, c):
+            assert rk.kernel_takes(hw, hw, c)
+            rk._check_cuda_args(*_meta_stage(hw, hw, c), "leaky_relu")
+        elif not rk.kernel_takes(hw, hw, c):
+            with pytest.raises(ValueError, match="the kernel takes"):
+                rk._check_cuda_args(*_meta_stage(hw, hw, c), "leaky_relu")
+    routed = [(size // s, c) for s, c in _STAGES if rk.stage_wins(size // s, size // s, c)]
+    assert routed == ([(size // 16, 512)] if size <= 512 else [])

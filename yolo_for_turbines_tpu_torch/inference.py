@@ -21,9 +21,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from yolo_for_turbines_tpu import config as cfg
-from yolo_for_turbines_tpu.config import ModelConfig
-
+from . import config as cfg
+from . import native
+from .config import ModelConfig
 from .data.augment import letterbox, unletterbox_boxes
 from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
@@ -33,14 +33,11 @@ from .ops.nms import batched_nms, nms_to_list
 
 
 def _letterbox_batch(np_images: List[np.ndarray], size: int, num_threads: int) -> np.ndarray:
-    """(N, size, size, 3) float32 in [0, 1]: the C++ packer of the JAX
-    package's ``native`` module when it builds here, else numpy + PIL."""
-    from yolo_for_turbines_tpu import native
-
-    if native.load_library() is not None:
-        return native.batch_letterbox(
-            np_images, size, num_threads=num_threads, reuse_buffer=True
-        )
+    """(N, size, size, 3) float32 in [0, 1]: the port's C++ packer
+    (``native``) when it builds here, else numpy + PIL."""
+    out = native.batch_letterbox(np_images, size, num_threads=num_threads)
+    if out is not None:
+        return out
     out = np.empty((len(np_images), size, size, 3), np.float32)
     for i, img in enumerate(np_images):
         lb, _ = letterbox(np.ascontiguousarray(img), None, size)

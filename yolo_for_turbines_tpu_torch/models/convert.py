@@ -13,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo_for_turbines_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from .yolov3 import (
     _LATER,
     FoldedConv,

@@ -20,8 +20,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from yolo_for_turbines_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..ops.kernels.resblock_kernel import apply_residual_stage_fused, stack_block_params
 from .blocks import conv2d, get_activation, upsample2x
 

@@ -3,8 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` (Hopper), one process per
 source, all started together; the objects link into one shared library with
 a plain C interface under ``yolo_for_turbines_tpu_torch/_build/``
-(git-ignored), at first use and again whenever a source is newer than the
-library, the way ``yolo_for_turbines_tpu/native`` builds its packer. The
+(git-ignored), at first use and again whenever a source or a header
+(``csrc/*.cuh``) is newer than the library. The
 library is loaded with ``ctypes``: every pointer and the stream travel as
 ``c_void_p`` (``tensor.data_ptr()``, ``torch.cuda.current_stream().cuda_stream``),
 and every entry point returns its ``cudaGetLastError()``, which
@@ -49,8 +49,6 @@ _SIGNATURES = {
     "greedy_nms_launch": ([_P, _P, _P, ctypes.c_float, _I, _I, _P, _P], _I),
     # x, w1, b1, w2, b2, out, batch, H, W, C, act, stream
     "resblock_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "resblock_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "resblock_pad_pixels": ([_I, _I], _I),
     # x, w1, d1, b1, vm1, w2, d2, b2, vout, rres, out, batch, H, W, C, act, stream
     "resblock_int8_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "resblock_int8_smem_bytes": ([_I, _I], ctypes.c_longlong),
@@ -61,7 +59,13 @@ _SIGNATURES = {
 
 
 def sources():
+    """The translation units: one ``nvcc -c`` each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _inputs():
+    """Every file a build reads: the sources and the headers they include."""
+    return sources() + sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -85,7 +89,7 @@ def _stale() -> bool:
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    return any(s.stat().st_mtime > built for s in _inputs())
 
 
 def _run(procs, what: str) -> None:

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import check, load_library, stream_handle
-from .resblock_kernel import _ACT_CODES, _ACTIVATIONS, MAX_SMEM, stage_wins
+from .resblock_kernel import _ACT_CODES, _ACTIVATIONS, MAX_SMEM
 
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
@@ -196,11 +196,11 @@ def pack_int8_stage(blocks_q: Sequence[dict], s_in, s1_list, s2_list):
 
 
 def int8_stage_wins(h: int, w: int, c: int) -> bool:
-    """Geometry class the fused int8 stage is routed to: the bf16 kernel's
-    (``resblock_kernel.stage_wins``, the 26x26x512 stage of Darknet-53 at
-    416px), at every batch size. The JAX router's batch gate and
-    measured-winner table were TPU measurements and are not applied."""
-    return stage_wins(h, w, c)
+    """Geometry class the fused int8 stage is routed to: c >= 512 and
+    16^2 <= h*w <= 32^2 (the 26x26x512 stage of Darknet-53 at 416px), at
+    every batch size. The JAX router's batch gate and measured-winner table
+    were TPU measurements and are not applied."""
+    return c >= 512 and 16 * 16 <= h * w <= 32 * 32
 
 
 def apply_residual_stage_int8_fused(ops, xq, activation: str) -> Optional[torch.Tensor]:

@@ -8,8 +8,10 @@ Darknet-53 residual block at inference is
 
 with f32 accumulation, ``mid`` rounded to the activation dtype, and the
 residual added in the activation dtype. The Pallas kernel runs a chunk of
-blocks per launch with the image resident in VMEM; the CUDA kernel runs one
-block per launch over row tiles (see the note at the top of the source).
+blocks per launch with the image resident in VMEM; the CUDA kernel (wgmma +
+TMA, ``sm_90a``) runs one block per launch over tiles of 128 positions x 256
+output channels (see the note at the top of the source). It takes C = 512
+and W <= 32 (``kernel_takes``); the router sends it nothing else.
 
 Layouts follow the JAX package: x is NHWC, w1s is (n, C, C/2) or
 (n, 1, 1, C, C/2), w2s is (n, 3, 3, C/2, C) HWIO, biases are (n, C/2) and
@@ -31,6 +33,10 @@ from . import check, load_library, stream_handle
 launches = 0
 
 MAX_SMEM = 232448  # shared memory one CTA may opt into on sm_90 (227 KB)
+
+# the geometry csrc/resblock.cu takes (its kC and kMaxW)
+KERNEL_C = 512
+KERNEL_MAX_W = 32
 
 _ACT_CODES = {"leaky_relu": 0, "mish": 1}
 _ACTIVATIONS = {
@@ -85,8 +91,16 @@ def _check_cuda_args(x, w1s, b1s, w2s, b2s, activation):
             raise ValueError(f"fused_residual_stage: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused_residual_stage: {name} must be contiguous and 16-byte aligned")
-    if c % 64:
-        raise ValueError(f"fused_residual_stage: C={c} must be a multiple of 64")
+    if not kernel_takes(h, w, c):
+        raise ValueError(
+            f"fused_residual_stage: the kernel takes C={KERNEL_C} and "
+            f"1 <= W <= {KERNEL_MAX_W}, got H={h}, W={w}, C={c}"
+        )
+
+
+def kernel_takes(h: int, w: int, c: int) -> bool:
+    """Whether the CUDA kernel takes an (H, W, C) geometry."""
+    return c == KERNEL_C and 1 <= w <= KERNEL_MAX_W and h >= 1
 
 
 def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
@@ -111,40 +125,30 @@ def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
         raise ValueError(f"fused_residual_stage: unsupported device {x.device}")
     _check_cuda_args(x, w1s, b1s, w2s, b2s, activation)
     b, h, w, c = x.shape
-    n = w2s.shape[0]
-    lib = load_library()
-    smem = lib.resblock_smem_bytes(w, c)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"fused_residual_stage: W={w}, C={c} needs {smem} B of shared "
-            "memory per CTA, over the 227 KB limit"
-        )
+    n, ch = w2s.shape[0], c // 2
     if b == 0 or n == 0:
         return x.clone()
+    lib = load_library()
     stream = stream_handle(x.device)
-    # The kernel reads the rows just above and below each image (and
-    # discards what it computes from them), so both buffers carry zeroed
-    # padding around the batch. Neighbouring CTAs read each other's halo
-    # rows: the blocks ping-pong between the two buffers, never in place.
-    pad = lib.resblock_pad_pixels(w, c) * c
-    size = b * h * w * c
-    bufs = []
-    for _ in range(2):
-        buf = torch.empty(size + 2 * pad, dtype=x.dtype, device=x.device)
-        buf[:pad].zero_()
-        buf[pad + size:].zero_()
-        bufs.append(buf)
-    bufs[0][pad : pad + size].copy_(x.reshape(-1))
+    # TMA reads the weights K-major: row n of W1 (C/2, C) and of W2
+    # (C, 9 C/2) holds output channel n's weights
+    w1t = w1s.reshape(n, c, ch).transpose(1, 2).contiguous()
+    w2t = w2s.reshape(n, 9 * ch, c).transpose(1, 2).contiguous()
+    # Neighbouring CTAs read each other's halo rows, so a block never
+    # writes its input: x, then two buffers in turn.
+    bufs = [torch.empty_like(x) for _ in range(min(n, 2))]
+    src = x
     for i in range(n):
-        src, dst = bufs[i % 2], bufs[(i + 1) % 2]
+        dst = bufs[i % 2]
         rc = lib.resblock_launch(
-            src[pad:].data_ptr(), w1s[i].data_ptr(), b1s[i].data_ptr(),
-            w2s[i].data_ptr(), b2s[i].data_ptr(), dst[pad:].data_ptr(),
+            src.data_ptr(), w1t[i].data_ptr(), b1s[i].data_ptr(),
+            w2t[i].data_ptr(), b2s[i].data_ptr(), dst.data_ptr(),
             b, h, w, c, _ACT_CODES[activation], stream,
         )
         check(rc, "resblock_launch")
         launches += 1
-    return bufs[n % 2][pad : pad + size].view(b, h, w, c)
+        src = dst
+    return src
 
 
 def stack_block_params(blocks: Sequence[Dict]) -> Tuple[torch.Tensor, ...]:
@@ -159,11 +163,14 @@ def stack_block_params(blocks: Sequence[Dict]) -> Tuple[torch.Tensor, ...]:
 
 
 def stage_wins(h: int, w: int, c: int) -> bool:
-    """Geometry class the fused stage is routed to: c >= 512 and
-    16^2 <= h*w <= 32^2, i.e. the 26x26x512 stage of Darknet-53 at 416px.
-    The batch gate and VMEM chunk test of the JAX router were TPU
-    measurements and are not applied."""
-    return c >= 512 and 16 * 16 <= h * w <= 32 * 32
+    """Geometry class the fused stage is routed to: c = 512 and
+    16^2 <= h*w <= 32^2, i.e. the 26x26x512 stage of Darknet-53 at 416px
+    (and its 20x20 to 32x32 sizes at 320-512px). Like the JAX router's
+    chunk test, which keeps 13x13x1024 off its kernel, the c = 1024 stage
+    (16x16 to 19x19 at 512-608px) stays on the layer path: the kernel does
+    not take it. The JAX router's batch gate was a TPU measurement and is
+    not applied."""
+    return 16 * 16 <= h * w <= 32 * 32 and kernel_takes(h, w, c)
 
 
 def apply_residual_stage_fused(stacked, x, activation: str) -> Optional[torch.Tensor]:

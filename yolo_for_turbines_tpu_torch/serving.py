@@ -15,8 +15,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_for_turbines_tpu.config import ModelConfig
-
+from .config import ModelConfig
 from .inference import Predictor
 from .models.convert import qparams_from_numpy
 

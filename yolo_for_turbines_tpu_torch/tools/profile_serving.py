@@ -68,8 +68,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
 
-    from yolo_for_turbines_tpu.config import ModelConfig
-
+    from ..config import ModelConfig
     from ..inference import Predictor
     from ..models.yolov3 import build_plan, init_plan
 
