@@ -18,12 +18,15 @@ Phases, one JSON line each:
   k3      pairwise IoU against its plain torch version, K in {256, 1000,
           4096}, center and top-left boxes: matrices must be equal bit for
           bit; CUDA-event times at K = 256 and 4096;
-  k4      fused int8 residual block against its plain torch version at the
-          five Darknet-53 residual geometries (leaky and mish): leaky codes
-          must be equal, mish codes at most 1 apart on under 1% of elements;
-          times of the 26x26x512 stage at B = 8 and 128 (leaky codes equal
-          there too), with the int8 layer path (im2col + torch._int_mm +
-          epilogue) for scale;
+  k4      fused int8 residual block (s8 wgmma + TMA) against its plain torch
+          version at the geometries the wrapper takes (C = 512, W <= 32,
+          down to 1x1; leaky and mish): leaky codes must be equal, mish codes at most 1
+          apart on under 1% of elements; the wrapper must refuse the other
+          Darknet-53 geometries; times of the 26x26x512 stage at B = 8 and
+          128 (leaky codes equal there too) beside its bound and the int8
+          layer path (im2col + torch._int_mm + epilogue); IGMMA and UTMALDG
+          instructions of the built kernel counted in cuobjdump's SASS (both
+          must be present);
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K1 and K2 must launch, outputs must be finite and well shaped,
@@ -57,9 +60,12 @@ K = 256
 N_CAND = 10647  # candidates per image at 416px: 3 * (13^2 + 26^2 + 52^2)
 # (H = W, C, blocks) of the Darknet-53 residual stages at 416px
 GEOMETRIES = ((208, 64, 1), (104, 128, 2), (52, 256, 8), (26, 512, 8), (13, 1024, 4))
-# (H, W, blocks) K2 is checked at, all with C = 512: the 16x16 to 32x32 range
-# the router sends it (320-512px inputs) and a non-square tile edge
+# (H, W, blocks) K2 and K4 are checked at, all with C = 512: the 16x16 to
+# 32x32 range the routers send them (320-512px inputs) and a non-square tile
+# edge
 K2_GEOMETRIES = ((16, 16, 2), (20, 20, 2), (26, 26, 8), (32, 32, 2), (13, 29, 2))
+# K4 besides at the ends of what its wrapper takes (1 <= W <= 32, any H)
+K4_GEOMETRIES = K2_GEOMETRIES + ((1, 1, 1), (40, 3, 1), (9, 7, 1), (50, 31, 1))
 # Published peak rates of one H100 SXM at 700 W, for bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -354,7 +360,8 @@ def phase_k3(dev, gen):
 
 def int8_stage_inputs(rng, batch, hw, c, n, dev):
     """Random s8 activations, weights quantized with ``_wq`` and seeded
-    scales, as tests/test_resblock_int8_kernel.py builds them."""
+    scales, as tests/test_resblock_int8_kernel.py builds them; hw is H = W or
+    (H, W)."""
     from yolo_for_turbines_tpu_torch.models.quantize import _wq
 
     def f32(a):
@@ -366,7 +373,8 @@ def int8_stage_inputs(rng, batch, hw, c, n, dev):
         w2q, s2 = _wq(rng.normal(0, 0.2, (3, 3, c // 2, c)))
         blocks.append({"w1q": w1q.to(dev), "s1": s1.to(dev), "b1": f32(rng.normal(0, 0.1, c // 2)),
                        "w2q": w2q.to(dev), "s2": s2.to(dev), "b2": f32(rng.normal(0, 0.1, c))})
-    xq = torch.from_numpy(rng.integers(-127, 128, (batch, hw, hw, c), dtype=np.int8)).to(dev)
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    xq = torch.from_numpy(rng.integers(-127, 128, (batch, h, w, c), dtype=np.int8)).to(dev)
     s1 = [f32(v) for v in rng.uniform(0.01, 0.05, n)]
     s2 = [f32(v) for v in rng.uniform(0.01, 0.05, n)]
     return xq, blocks, f32(0.021), s1, s2
@@ -379,38 +387,53 @@ def phase_k4(dev, rng):
     out = {"phase": "k4", "kernel": "fused_residual_stage_int8",
            "mish_max_codes": K4_MISH_MAX_CODES, "mish_max_frac": K4_MISH_MAX_FRAC,
            "checks": []}
+    out["sass"] = sass_counts("resblock_int8_wgmma_kernel", ("IGMMA", "UTMALDG"))
+    if not all(out["sass"].values()):
+        emit(out)
+        raise AssertionError(f"K4 is not built on integer wgmma and TMA: {out['sass']}")
     worst = 0
-    cases = [(g, 2) for g in GEOMETRIES] + [((26, 512, 8), 8)]
     for activation in ("leaky_relu", "mish"):
-        for (hw, c, n), batch in cases:
-            xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, batch, hw, c, n, dev)
+        for h, w, n in K4_GEOMETRIES:
+            batch = 8 if (h, w) == (26, 26) else 2
+            xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, batch, (h, w), 512, n, dev)
             ops = rk.pack_int8_stage(blocks, s_x, s1, s2)
             got = rk.fused_residual_stage_int8(xq, *ops, activation=activation)
             torch.cuda.synchronize()
             want = rk.fused_residual_stage_int8_reference(xq, *ops, activation=activation)
             diff = (got.int() - want.int()).abs()
             codes, frac = int(diff.max()), float((diff != 0).float().mean())
-            out["checks"].append({"act": activation, "hw": hw, "c": c, "n": n, "B": batch,
-                                  "max_codes": codes, "frac_differing": frac})
+            out["checks"].append({"act": activation, "h": h, "w": w, "c": 512, "n": n,
+                                  "B": batch, "max_codes": codes, "frac_differing": frac})
             worst = max(worst, codes)
             ok = codes == 0 if activation == "leaky_relu" else (
                 codes <= K4_MISH_MAX_CODES and frac < K4_MISH_MAX_FRAC)
             if not ok:
                 emit(out)
                 raise AssertionError(f"K4 differs from plain: {out['checks'][-1]}")
+    # the wrapper takes nothing else: no fallback for the other stages
+    for hw, c, _ in GEOMETRIES:
+        if c != 512:
+            xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, 1, hw, c, 1, dev)
+            try:
+                rk.fused_residual_stage_int8(xq, *rk.pack_int8_stage(blocks, s_x, s1, s2))
+            except ValueError:
+                continue
+            raise AssertionError(f"K4 took the geometry {hw}x{hw}x{c}")
     for batch in (8, 128):
         xq, blocks, s_x, s1, s2 = int8_stage_inputs(rng, batch, 26, 512, 8, dev)
         ops = rk.pack_int8_stage(blocks, s_x, s1, s2)
         layers = tq.pack_int8_blocks(blocks, s_x, s1, s2, use_residual=True)
+        # the K-major weight copies, made once as pack_int8 makes them
+        kmajor = rk.kmajor_weights(ops[0], ops[4])
         # the timed shape is held against the plain version too (leaky)
-        got = rk.fused_residual_stage_int8(xq, *ops)
+        got = rk.fused_residual_stage_int8(xq, *ops, kmajor=kmajor)
         mismatches = int((got != rk.fused_residual_stage_int8_reference(xq, *ops)).sum())
         out[f"26x26x512_B{batch}_leaky_mismatches"] = mismatches
         if mismatches:
             emit(out)
             raise AssertionError(f"K4 differs from plain at the timed shape, B={batch}")
         ms, plain_ms = ab_ms(
-            lambda: rk.fused_residual_stage_int8(xq, *ops),
+            lambda: rk.fused_residual_stage_int8(xq, *ops, kmajor=kmajor),
             lambda: rk.fused_residual_stage_int8_reference(xq, *ops),
             iters=10, plain_iters=3,
         )
@@ -418,11 +441,12 @@ def phase_k4(dev, rng):
         out[f"26x26x512_B{batch}_plain_ms"] = plain_ms
         out[f"26x26x512_B{batch}_bound_ms"], out[f"26x26x512_B{batch}_bound_by"] = stage_bound(
             xq, ops[0], ops[4], INT8_OPS)
+        out[f"26x26x512_B{batch}_share_of_bound"] = out[f"26x26x512_B{batch}_bound_ms"] / ms
         out[f"26x26x512_B{batch}_int8_layers_ms"] = cuda_ms(
             lambda: tq.residual_blocks_int8(xq, layers), 10)
         # the layer path divides by the scales where the kernel multiplies
         # by their reciprocals: codes may differ at ties (not gated)
-        diff = rk.fused_residual_stage_int8(xq, *ops) != tq.residual_blocks_int8(xq, layers)
+        diff = got != tq.residual_blocks_int8(xq, layers)
         out[f"26x26x512_B{batch}_layers_vs_kernel_frac_differing"] = float(diff.float().mean())
         if batch == 8:  # the same for the first block alone
             one = rk.fused_residual_stage_int8(xq, *(t[:1] for t in ops))

@@ -143,6 +143,15 @@ def test_pack_int8_packs_k4_operands_only_where_routed(wide_stage, size, routed)
     plan, qp = wide_stage
     stage = tq.pack_int8(plan, qp, size, torch.float32)[3]  # packed[0] is the input scale
     assert (stage["stage"] is not None) == routed
+    # K4's K-major weight copies are made with its operands, and only then
+    assert (stage["stage_kmajor"] is not None) == routed
+    if routed:
+        w1t, w2t = stage["stage_kmajor"]
+        w1q, w2q = stage["stage"][0], stage["stage"][4]
+        assert tuple(w1t.shape) == (1, 256, 512) and tuple(w2t.shape) == (1, 512, 9 * 256)
+        assert w1t.is_contiguous() and w2t.is_contiguous()
+        assert torch.equal(w1t, w1q.transpose(1, 2))
+        assert torch.equal(w2t, w2q.reshape(1, 9 * 256, 512).transpose(1, 2))
     # the layer path's weights are views of the quantized tree, not copies
     want = qp["layers"][2]["blocks"][0]
     got = stage["blocks"][0]

@@ -48,3 +48,31 @@ def test_main_needs_a_card(monkeypatch):
     monkeypatch.setattr(rp.torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
         rp.main([])
+
+
+def test_phase_summary_reads_k4_stamps():
+    # K4's instrumented build has its own stamp reader; the tiling, and so
+    # the CTA count, is K2's
+    n = len(rp.PHASES)
+    stamps = np.zeros((14, n + 2), np.int64)
+    stamps[:, :n] = 1800 * np.arange(n)
+    stamps[:, n + 1] = 1000 * (n - 1)
+
+    class Lib:
+        def resblock_int8_phases(self, ptr, ctas):
+            return _StampedLib(stamps).resblock_phases(ptr, ctas)
+
+    got = rp.phase_summary(Lib(), batch=1, hw=26, sms=132, kernel="k4")
+    assert got["ctas"] == 14
+    assert got["sm_clock_ghz"] == pytest.approx(1.8)
+    assert got["cta_us"] == pytest.approx(n - 1)
+
+
+@pytest.mark.parametrize("kernel", sorted(rp.KERNELS))
+def test_phase_sources_exist_and_carry_the_stamps(kernel):
+    source, launch, reader = rp.KERNELS[kernel]
+    text = (rp.kernels.CSRC_DIR / source).read_text()
+    assert "#ifdef RESBLOCK_PHASES" in text
+    assert f'extern "C" int {launch}(' in text and f'extern "C" int {reader}(' in text
+    assert launch in rp.kernels._SIGNATURES
+    assert f"kPhases = {len(rp.PHASES)};" in text

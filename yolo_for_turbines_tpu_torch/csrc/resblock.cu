@@ -71,15 +71,13 @@
 // idle tensor time, about 40% of a CTA. Hiding them needs a second tile in
 // flight per SM: a persistent kernel, or chained blocks.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached
-                   // through cudaGetDriverEntryPoint, not linked
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kC = 512;               // channels the kernel takes
@@ -97,7 +95,6 @@ constexpr int kW1Tile = 128 * 128;    // a 128-channel x 64 W1 tile
 constexpr int kMaxW1Stages = 4;
 constexpr int kW2Stages = 3;
 constexpr int kW2Tile = kNOut * 128;  // a 256-channel x 64 W2 tile
-constexpr int kSmemLimit = 232448;    // what one CTA may opt into on sm_90
 constexpr int kBarBytes = 256;
 constexpr int kBiasBytes = (128 + kNOut) * 4;  // the CTA's b1 and b2 slices
 constexpr int kTailBytes = kBarBytes + kBiasBytes;
@@ -105,8 +102,6 @@ constexpr int kTailBytes = kBarBytes + kBiasBytes;
 // slices); each computes 128 of the 1x1's kCh channels into every CTA's mid.
 constexpr int kPair = kC / kNOut;
 static_assert(kPair == 2 && kCh / kPair == 128, "one 128-channel 1x1 slice per CTA of a pair");
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Shared-memory plan of one CTA for a width W; offsets from a 1024-aligned
 // base. The 1x1 holds the x tile and the W1 ring; the 3x3 reuses that memory
@@ -149,10 +144,6 @@ struct Barriers {
 };
 static_assert(sizeof(Barriers) <= kBarBytes, "barriers fit their slot");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // kAct 0 = leaky_relu(0.1), 1 = mish
 template <int kAct>
 __device__ __forceinline__ float activate(float v) {
@@ -160,152 +151,10 @@ __device__ __forceinline__ float activate(float v) {
     return v * tanhf(log1pf(expf(v)));
 }
 
-// ---- mbarriers, barriers and TMA -------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-                 : "memory");
-}
-
-// Spins until the phase of the given parity has completed. A wait that
-// outlasts about 10 s of SM clock traps (the launch fails) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-    uint32_t done = 0;
-    const long long start = clock64();
-    while (!done) {
-        if (clock64() - start > 20000000000LL) __trap();
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-    }
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait parity for the n-th use (n = 0, 1, ...) of a ring slot's empty
-// barrier: the first round finds the slot free.
-__device__ __forceinline__ int empty_parity(int n, int stages) { return ((n / stages) & 1) ^ 1; }
-
 // The two consumer warpgroups only (barrier 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync() {
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-    return r;
-}
-
-// Cluster-wide barrier in two halves: every thread of every CTA of the
-// cluster arrives; a thread that waits, waits for all. Within the producer
-// warp the two halves run with all 32 lanes together: a lane that arrived
-// and went on with other work while others of its warp waited hung it.
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// Address of the same shared-memory offset in CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* local, uint32_t rank) {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote)
-                 : "r"(smem_u32(local)), "r"(rank));
-    return remote;
-}
-
-// Copies `bytes` of this CTA's shared memory to the same offset in the
-// partner's, completing on the partner's barrier (both given as cluster
-// addresses).
-__device__ __forceinline__ void copy_to_peer(uint32_t dst, const void* src, int bytes,
-                                             uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar)
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
-    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-                 : "memory");
-}
-
-// One 2-D tile (c0 = column, c1 = row; may be out of bounds: zero-filled).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-        : "memory");
-}
-
-// One box of an NHWC tensor seen as 4-D (channel, x, y, image).
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c, int y,
-                                            int img, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(0), "r"(y), "r"(img),
-        "r"(smem_u32(bar))
-        : "memory");
-}
-
-// The store counterpart; rows outside the tensor are not written.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c,
-                                             int y, int img) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::
-            "l"(reinterpret_cast<uint64_t>(map)),
-        "r"(c), "r"(0), "r"(y), "r"(img), "r"(smem_u32(src))
-        : "memory");
-}
+__device__ __forceinline__ void consumers_sync() { named_sync<kConsumers>(); }
 
 // ---- wgmma ---------------------------------------------------------------
-
-// Shared-memory operand descriptor of a K-major tile in the 128-byte swizzle
-// (as TMA writes it into a 1024-aligned region): rows of 128 bytes, 8-row
-// groups 1024 bytes apart. The tile may start at any row of the region;
-// stepping K by 16 elements adds 32 bytes (2 in the descriptor's 16-byte
-// units) to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-    return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
-           (static_cast<uint64_t>(1) << 16) |             // leading offset (unused)
-           (static_cast<uint64_t>(1024 >> 4) << 32) |     // stride offset: 8 rows
-           (static_cast<uint64_t>(1) << 62);              // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a
-// wgmma fence or wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 #define F8(i)                                                                       \
     "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -748,45 +597,11 @@ resblock_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 // ---- host side -------------------------------------------------------------
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-        return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p)
-                   : nullptr;
-    }();
-    return fn;
-}
-
-// A bf16 tensor of `rank` dims (dims[0] innermost, contiguous) read or
-// written in boxes whose inner edge is 64 elements (128 bytes, swizzled);
-// out-of-bounds elements read as zero and are not written.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-            const uint32_t* box) {
-    cuuint64_t gdims[4], strides[3];
-    cuuint32_t gbox[4], elem[4];
-    uint64_t stride = sizeof(bf16);
-    for (int i = 0; i < rank; ++i) {
-        gdims[i] = dims[i];
-        gbox[i] = box[i];
-        elem[i] = 1;
-        if (i > 0) strides[i - 1] = stride;
-        stride *= dims[i];
-    }
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdims,
-              strides, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A bf16 tensor map with boxes whose inner edge is 64 elements.
+bool encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
+                 const uint64_t* dims, const uint32_t* box) {
+    return encode(fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), ptr, rank, dims,
+                  box);
 }
 
 }  // namespace
@@ -818,9 +633,11 @@ extern "C" int resblock_launch(const void* x, const void* w1, const void* b1, co
     const uint64_t nhwc[4] = {kC, static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                               static_cast<uint64_t>(batch)};
     const uint32_t tile_box[4] = {kKc, static_cast<uint32_t>(W), static_cast<uint32_t>(L.th), 1};
-    if (!encode(fn, &tm_x, x, 2, x2d, x2d_box) || !encode(fn, &tm_w1, w1, 2, w1_dims, w1_box) ||
-        !encode(fn, &tm_w2, w2, 2, w2_dims, w2_box) ||
-        !encode(fn, &tm_res, x, 4, nhwc, tile_box) || !encode(fn, &tm_out, out, 4, nhwc, tile_box))
+    if (!encode_bf16(fn, &tm_x, x, 2, x2d, x2d_box) ||
+        !encode_bf16(fn, &tm_w1, w1, 2, w1_dims, w1_box) ||
+        !encode_bf16(fn, &tm_w2, w2, 2, w2_dims, w2_box) ||
+        !encode_bf16(fn, &tm_res, x, 4, nhwc, tile_box) ||
+        !encode_bf16(fn, &tm_out, out, 4, nhwc, tile_box))
         return cudaErrorInvalidValue;
     const int smem = L.smem_bytes();
     const auto kernel = act == 0 ? resblock_wgmma_kernel<0> : resblock_wgmma_kernel<1>;

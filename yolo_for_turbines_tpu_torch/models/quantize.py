@@ -39,6 +39,7 @@ from ..ops.kernels.resblock_int8_kernel import (
     apply_residual_stage_int8_fused,
     int8_stage_wins,
     int_mm,
+    kmajor_weights,
     pack_int8_stage,
 )
 from .blocks import get_activation
@@ -280,8 +281,9 @@ def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> l
     """Walk the plan once over ``qparams`` and fold the calibrated scale
     chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
     tensors for the layer path (weights as views of ``qparams``' where no
-    padding is needed), K4's stacked operands for each residual stage the
-    router sends to K4 at ``image_size`` (None elsewhere), head weights in
+    padding is needed), K4's stacked operands and its K-major weight copies
+    for each residual stage the router sends to K4 at ``image_size`` (None
+    elsewhere), head weights in
     ``compute_dtype``. The f32 arithmetic is the JAX function's; everything
     stays on the qparams' device."""
     scales = qparams["scales"]
@@ -313,10 +315,12 @@ def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> l
             pairs = [(scales[next(si)], scales[next(si)]) for _ in p["blocks"]]
             s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
             routed = entry.use_residual and int8_stage_wins(hw, hw, entry.channels)
+            stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if routed else None
             q = {"blocks": pack_int8_blocks(p["blocks"], s_x, s1_list, s2_list,
                                             entry.use_residual),
-                 "stage": (pack_int8_stage(p["blocks"], s_x, s1_list, s2_list)
-                           if routed else None)}
+                 "stage": stage,
+                 # the K-major weights K4 reads, made here once per model
+                 "stage_kmajor": kmajor_weights(stage[0], stage[4]) if routed else None}
             s_x = s2_list[-1]
             if entry.save_route:
                 routes.append(s_x)
@@ -387,7 +391,8 @@ def apply_inference_int8(
             elif isinstance(entry, PlanResidual):
                 fused = None
                 if q["stage"] is not None and not portable:
-                    fused = apply_residual_stage_int8_fused(q["stage"], xq, activation)
+                    fused = apply_residual_stage_int8_fused(q["stage"], xq, activation,
+                                                            kmajor=q["stage_kmajor"])
                 xq = fused if fused is not None else residual_blocks_int8(
                     xq, q["blocks"], activation)
                 if entry.save_route:

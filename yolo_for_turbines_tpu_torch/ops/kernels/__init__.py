@@ -51,8 +51,6 @@ _SIGNATURES = {
     "resblock_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
     # x, w1, d1, b1, vm1, w2, d2, b2, vout, rres, out, batch, H, W, C, act, stream
     "resblock_int8_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
-    "resblock_int8_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "resblock_int8_pad_pixels": ([_I, _I], _I),
     # boxes, k, out, stream
     "pairwise_iou_launch": ([_P, _I, _P, _P], _I),
 }

@@ -16,7 +16,11 @@ Layouts follow the JAX package: x is NHWC s8, w1q is (n, C, C/2), w2q is
 (n, 9, C/2, C) (taps row-major), the rows are (n, C/2) and (n, C) f32.
 ``fused_residual_stage_int8`` dispatches on the tensor's device: a CPU tensor
 takes ``fused_residual_stage_int8_reference``; a CUDA tensor launches the
-kernel once per block or raises.
+kernel once per block or raises. The kernel (s8 wgmma + TMA, ``sm_90a``) runs
+one block per launch over tiles of 128 positions x 256 output channels and
+takes C = 512 and W <= 32 (``kernel_takes``); it reads the weights K-major
+(``kmajor_weights``), which ``models/quantize.py::pack_int8`` makes once per
+model for the stages it routes here.
 
 Also here: ``int_mm``, the exact s8 x s8 -> i32 matrix product
 (``torch._int_mm``) that the plain version and the model's unfused int8
@@ -25,13 +29,20 @@ layers share.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import check, load_library, stream_handle
-from .resblock_kernel import _ACT_CODES, _ACTIVATIONS, MAX_SMEM
+from .resblock_kernel import (
+    _ACT_CODES,
+    _ACTIVATIONS,
+    KERNEL_C,
+    KERNEL_MAX_W,
+    kernel_takes,
+    stage_wins,
+)
 
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
@@ -84,18 +95,64 @@ def fused_residual_stage_int8_reference(xq, w1q, d1, b1, vm1, w2q, d2, b2, vout,
     return x
 
 
-def _check_cuda_args(xq, ops, activation):
+def smem_plan(w: int) -> dict:
+    """The shared-memory plan of one CTA of ``csrc/resblock_int8.cu`` for a
+    width ``w`` (its ``Layout``), in bytes from a 1024-aligned base: the 1x1
+    holds the x tile (4 K chunks of 128 channels) and the CTA's half of W1;
+    the 3x3 reuses that memory for ``mid`` (two 128-channel blocks) and a
+    5-slot ring of 32 KB W2 tiles whose slots count down from ``ring_end``;
+    then the barriers and the staged epilogue rows. ``th`` is the output rows
+    of a tile, ``n1`` the positions of the 1x1, ``w2_early`` the ring slots
+    that lie past the x tile and W1 and so fill while the 1x1 runs."""
+    def round_up(v, m):
+        return -(-v // m) * m
+
+    k1, w1_tile, w2_stages, w2_tile, tail = 4, 128 * 128, 5, 256 * 128, 256 + (128 + 256) * 16
+    th = 128 // (w + 2)
+    n1 = (th + 2) * w
+    xchunk = round_up(n1, 8) * 128
+    w1_off = k1 * xchunk
+    mid_block = round_up((128 + 2 * (w + 2) + 2) * 128, 1024)
+    ring_end = 2 * mid_block + w2_stages * w2_tile
+    end1 = w1_off + k1 * w1_tile
+    bar_off = max(end1, ring_end)
+    return {
+        "th": th, "n1": n1, "xchunk": xchunk, "w1_off": w1_off, "end1": end1,
+        "mid_block": mid_block, "ring_end": ring_end,
+        "slot_off": [ring_end - (s + 1) * w2_tile for s in range(w2_stages)],
+        "w2_early": min(w2_stages, max(0, ring_end - end1) // w2_tile),
+        "res_bytes": th * w * 128, "res_stride": round_up(th * w * 128, 1024),
+        "bar_off": bar_off, "smem_bytes": 1024 + bar_off + tail,
+    }
+
+
+def kmajor_weights(w1q: torch.Tensor, w2q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layout the kernel reads: W1 as (n, C/2, C) and W2 as (n, C, 9*C/2),
+    row ``o`` holding output channel ``o``'s weights (W2's K index is
+    tap * C/2 + input channel), from ``pack_int8_stage``'s (n, C, C/2) and
+    (n, 9, C/2, C)."""
+    n, c, ch = w1q.shape
+    return (w1q.transpose(1, 2).contiguous(),
+            w2q.reshape(n, 9 * ch, c).transpose(1, 2).contiguous())
+
+
+def _check_cuda_args(xq, ops, activation, kmajor=None):
     if activation not in _ACT_CODES:
         raise ValueError(f"fused_residual_stage_int8: unsupported activation {activation!r}")
     if xq.dim() != 4:
         raise ValueError(f"fused_residual_stage_int8: x must be NHWC, got {tuple(xq.shape)}")
     b, h, w, c = xq.shape
     n, ch = ops[0].shape[0], c // 2
+    i8, f32 = torch.int8, torch.float32
     names = ("w1q", "d1", "b1", "vm1", "w2q", "d2", "b2", "vout", "rres")
     shapes = ((n, c, ch), (n, ch), (n, ch), (n, ch), (n, 9, ch, c),
               (n, c), (n, c), (n, c), (n, c))
-    for name, t, shape in zip(("x",) + names, (xq,) + tuple(ops), ((b, h, w, c),) + shapes):
-        dtype = torch.int8 if name in ("x", "w1q", "w2q") else torch.float32
+    dtypes = (i8, f32, f32, f32, i8, f32, f32, f32, f32)
+    expected = [("x", xq, (b, h, w, c), i8), *zip(names, ops, shapes, dtypes)]
+    if kmajor is not None:
+        expected += [("w1 (K-major)", kmajor[0], (n, ch, c), i8),
+                     ("w2 (K-major)", kmajor[1], (n, c, 9 * ch), i8)]
+    for name, t, shape, dtype in expected:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(
                 f"fused_residual_stage_int8: {name} must be {dtype} {shape}, "
@@ -106,12 +163,16 @@ def _check_cuda_args(xq, ops, activation):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"fused_residual_stage_int8: {name} must be contiguous and 16-byte aligned")
-    if c % 64:
-        raise ValueError(f"fused_residual_stage_int8: C={c} must be a multiple of 64")
+    if not kernel_takes(h, w, c):
+        raise ValueError(
+            f"fused_residual_stage_int8: the kernel takes C={KERNEL_C} and "
+            f"1 <= W <= {KERNEL_MAX_W}, got H={h}, W={w}, C={c}"
+        )
 
 
 def fused_residual_stage_int8(xq, w1q, d1, b1, vm1, w2q, d2, b2, vout, rres, *,
-                              activation: str = "leaky_relu"):
+                              activation: str = "leaky_relu",
+                              kmajor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Run a stack of quantized residual blocks.
 
     Args:
@@ -120,6 +181,8 @@ def fused_residual_stage_int8(xq, w1q, d1, b1, vm1, w2q, d2, b2, vout, rres, *,
         d1/b1/vm1: (n, C/2) f32 epilogue rows (dequant, bias, 1/s_mid).
         w2q: (n, 9, C/2, C) int8 3x3 tap weights (row-major taps).
         d2/b2/vout/rres: (n, C) f32 epilogue rows.
+        kmajor: ``kmajor_weights(w1q, w2q)``, which the CUDA kernel reads;
+            made here when not given (a model packs them once).
 
     Returns (B, H, W, C) int8 in a new tensor; ``xq`` is left unchanged.
     """
@@ -129,43 +192,34 @@ def fused_residual_stage_int8(xq, w1q, d1, b1, vm1, w2q, d2, b2, vout, rres, *,
         return fused_residual_stage_int8_reference(xq, *ops, activation=activation)
     if xq.device.type != "cuda":
         raise ValueError(f"fused_residual_stage_int8: unsupported device {xq.device}")
-    _check_cuda_args(xq, ops, activation)
+    _check_cuda_args(xq, ops, activation, kmajor)
     b, h, w, c = xq.shape
     n = w1q.shape[0]
-    lib = load_library()
-    smem = lib.resblock_int8_smem_bytes(w, c)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"fused_residual_stage_int8: W={w}, C={c} needs {smem} B of shared "
-            "memory per CTA, over the 227 KB limit"
-        )
     if b == 0 or n == 0:
         return xq.clone()
+    lib = load_library()
     stream = stream_handle(xq.device)
-    # As in the bf16 wrapper: zeroed padding around the batch for the halo
-    # rows the kernel reads and discards, and two buffers the blocks
-    # ping-pong between (neighbouring CTAs read each other's input rows).
-    pad = lib.resblock_int8_pad_pixels(w, c) * c
-    size = b * h * w * c
-    bufs = []
-    for _ in range(2):
-        buf = torch.empty(size + 2 * pad, dtype=torch.int8, device=xq.device)
-        buf[:pad].zero_()
-        buf[pad + size:].zero_()
-        bufs.append(buf)
-    bufs[0][pad : pad + size].copy_(xq.reshape(-1))
+    w1t, w2t = kmajor if kmajor is not None else kmajor_weights(w1q, w2q)
+    # Neighbouring CTAs read each other's halo rows, so a block never
+    # writes its input: xq, then two buffers in turn.
+    bufs = [torch.empty_like(xq) for _ in range(min(n, 2))]
+    # block i's operands by address: slicing nine tensors per launch would
+    # cost the host more than a small batch costs the card
+    operands = (w1t, d1, b1, vm1, w2t, d2, b2, vout, rres)
+    bases = [t.data_ptr() for t in operands]
+    steps = [t.stride(0) * t.element_size() for t in operands]
+    act = _ACT_CODES[activation]
+    src = xq
     for i in range(n):
-        src, dst = bufs[i % 2], bufs[(i + 1) % 2]
+        dst = bufs[i % 2]
         rc = lib.resblock_int8_launch(
-            src[pad:].data_ptr(), w1q[i].data_ptr(), d1[i].data_ptr(),
-            b1[i].data_ptr(), vm1[i].data_ptr(), w2q[i].data_ptr(),
-            d2[i].data_ptr(), b2[i].data_ptr(), vout[i].data_ptr(),
-            rres[i].data_ptr(), dst[pad:].data_ptr(),
-            b, h, w, c, _ACT_CODES[activation], stream,
+            src.data_ptr(), *(base + i * step for base, step in zip(bases, steps)),
+            dst.data_ptr(), b, h, w, c, act, stream,
         )
         check(rc, "resblock_int8_launch")
         launches += 1
-    return bufs[n % 2][pad : pad + size].view(b, h, w, c)
+        src = dst
+    return src
 
 
 def pack_int8_stage(blocks_q: Sequence[dict], s_in, s1_list, s2_list):
@@ -196,18 +250,22 @@ def pack_int8_stage(blocks_q: Sequence[dict], s_in, s1_list, s2_list):
 
 
 def int8_stage_wins(h: int, w: int, c: int) -> bool:
-    """Geometry class the fused int8 stage is routed to: c >= 512 and
-    16^2 <= h*w <= 32^2 (the 26x26x512 stage of Darknet-53 at 416px), at
-    every batch size. The JAX router's batch gate and measured-winner table
-    were TPU measurements and are not applied."""
-    return c >= 512 and 16 * 16 <= h * w <= 32 * 32
+    """Geometry class the fused int8 stage is routed to, the bf16 router's
+    (``resblock_kernel.stage_wins``): c = 512 and 16^2 <= h*w <= 32^2, the
+    26x26x512 stage of Darknet-53 at 416px and its 20x20 to 32x32 sizes at
+    320-512px, at every batch size. The c = 1024 stage (16x16 to 19x19 at
+    512-608px) stays on the int8 layer path: the kernel does not take it.
+    The JAX router's batch gate and measured-winner table were TPU
+    measurements and are not applied."""
+    return stage_wins(h, w, c)
 
 
-def apply_residual_stage_int8_fused(ops, xq, activation: str) -> Optional[torch.Tensor]:
+def apply_residual_stage_int8_fused(ops, xq, activation: str,
+                                    kmajor=None) -> Optional[torch.Tensor]:
     """Router for a quantized use_residual stage: ``ops`` from
-    ``pack_int8_stage``, xq NHWC s8; returns None when the geometry stays on
-    the layer-by-layer int8 path."""
+    ``pack_int8_stage`` (``kmajor`` from ``kmajor_weights``), xq NHWC s8;
+    returns None when the geometry stays on the layer-by-layer int8 path."""
     _, h, w, c = xq.shape
     if not int8_stage_wins(h, w, c):
         return None
-    return fused_residual_stage_int8(xq, *ops, activation=activation)
+    return fused_residual_stage_int8(xq, *ops, activation=activation, kmajor=kmajor)
