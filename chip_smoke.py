@@ -6,18 +6,25 @@
 Phases, one JSON line each:
   env     torch / CUDA versions and the card's name and power limit;
   build   nvcc build of csrc/*.cu (sm_90a) into the git-ignored _build/;
-  k1      fused greedy NMS against its plain torch version, B in {1, 8, 128}:
-          keep masks must be equal; CUDA-event times at B = 1 and 128;
+  k1      fused greedy NMS against its plain torch version: K = 256 at B in
+          {1, 8, 128}, K = 100 and 1024 (one launch), K = 1500 and 2048 (two
+          launches, bits in device memory), center and top-left boxes; every
+          box invalid; one class in long suppression chains; a NaN box: keep
+          masks must be equal; CUDA-event times at K = 256 for B = 1, 8 and
+          128 (wrapper included, and the launches alone replayed as a CUDA
+          graph) and at K = 2048;
   k2      fused residual block (wgmma + TMA) against its plain torch version
           in bf16 at the geometries the wrapper takes (C = 512, W <= 32;
           leaky and mish, B = 2) and at the timed 26x26x512 stage for B = 8
           and 128; the wrapper must refuse the other Darknet-53 geometries;
-          times of the 26x26x512 stage at B = 8 and 128 beside its bound and
-          the cuDNN layer path; HGMMA and UTMALDG instructions of the built
+          times of the 26x26x512 stage at B = 8 and 128, with the K-major
+          weights given (the model's way) and made by the wrapper, beside its
+          bound and the cuDNN layer path; HGMMA and UTMALDG instructions of the built
           kernel counted in cuobjdump's SASS (both must be present);
-  k3      pairwise IoU against its plain torch version, K in {256, 1000,
-          4096}, center and top-left boxes: matrices must be equal bit for
-          bit; CUDA-event times at K = 256 and 4096;
+  k3      pairwise IoU against its plain torch version, K in {1, 255, 256,
+          1000, 1001, 4096} (16-byte and scalar stores), center and top-left
+          boxes: matrices must be equal bit for bit; CUDA-event times at
+          K = 256 and 4096 for both formats;
   k4      fused int8 residual block (s8 wgmma + TMA) against its plain torch
           version at the geometries the wrapper takes (C = 512, W <= 32,
           down to 1x1; leaky and mish): leaky codes must be equal, mish codes at most 1
@@ -31,12 +38,18 @@ Phases, one JSON line each:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K1 and K2 must launch, outputs must be finite and well shaped,
           and raw heads must agree with an f32 CPU forward of the same weights;
+  main_f32  the same model with compute_dtype=float32 (TF32 off),
+          predict_batch at B = 2: K2 is bf16 only, so it must not launch (the
+          stage takes the cuDNN layer path) while K1 must, and the raw heads
+          must agree with the f32 CPU forward;
   main_int8  the same model quantized (int8 PTQ, calibrated on 8 seeded
           images) and served through the same entry points: K1 and K4 must
           launch, outputs must be finite and well shaped, and against the
           port's int8 CPU forward of the same qparams the s8 trunk codes
-          each head reads must agree and the raw heads must agree (cosine).
-Both main phases also count K3's launches (no serving path calls it).
+          each head reads must agree and the raw heads must agree (cosine);
+          a predictor built for 608px, quantized the same way and fed the
+          416px batch must launch K4 too and give the same trunk codes.
+The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
 peak of their type, whichever is larger; the published H100 SXM
@@ -81,6 +94,12 @@ K2_TOL = 2.0 ** -5
 # relative RMS error per head. About 75 layers each round activations to bf16
 # (2^-9 relative), which compounds to a few percent at the heads.
 HEAD_RTOL = 0.05
+# Raw-head tolerance of the f32 card forward (TF32 off) against the f32 CPU
+# forward: relative RMS error per head. Both sum each conv in f32 in another
+# order; measured 1.5e-8 to 1.9e-8 on an H100 (the heads of seeded random
+# weights are mostly bias), gated at 1e-6 to leave room for another cuDNN's
+# choice of algorithm. A stage in bf16 gives 2e-3.
+HEAD_RTOL_F32 = 1e-6
 # K4 with mish: the kernel's tanhf/log1pf/expf may differ from torch's CUDA
 # mish by an ulp, which moves a requant code at a .5 tie. With leaky_relu
 # the codes must be equal.
@@ -136,7 +155,7 @@ def ab_ms(kernel_fn, plain_fn, iters: int, plain_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def nms_inputs(batch: int, gen: torch.Generator, dev):
+def nms_inputs(batch: int, gen: torch.Generator, dev, k: int = K, classes: int = 3):
     from yolo_for_turbines_tpu_torch.ops.nms import _top_k_candidates
 
     boxes = torch.zeros(batch, N_CAND, 6)
@@ -145,38 +164,81 @@ def nms_inputs(batch: int, gen: torch.Generator, dev):
     # distinct scores: a permutation of evenly spaced values
     boxes[..., 4] = torch.randperm(batch * N_CAND, generator=gen).reshape(
         batch, N_CAND).float() / (batch * N_CAND)
-    boxes[..., 5] = torch.randint(0, 3, (batch, N_CAND), generator=gen).float()
-    return _top_k_candidates(boxes.to(dev), 0.3, K)
+    boxes[..., 5] = torch.randint(0, classes, (batch, N_CAND), generator=gen).float()
+    return _top_k_candidates(boxes.to(dev), 0.3, k)
 
 
 def phase_k1(dev, gen):
     from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel as nk
 
-    out = {"phase": "k1", "kernel": "greedy_nms", "K": K, "N": N_CAND}
+    out = {"phase": "k1", "kernel": "greedy_nms", "K": K, "N": N_CAND, "checks": []}
+
+    def check(cand, valid, fmt, what):
+        before = nk.launches
+        got = nk.greedy_nms(cand, valid, 0.45, fmt)
+        torch.cuda.synchronize()
+        want = nk.greedy_nms_reference(cand, valid, 0.45, fmt)
+        b, k = valid.shape
+        out["checks"].append({**what, "B": b, "K": k, "format": fmt, "valid": int(valid.sum()),
+                              "kept": int(got.sum()), "mismatches": int((got != want).sum()),
+                              "cuda_launches": nk.launches - before})
+        if out["checks"][-1]["mismatches"]:
+            emit(out)
+            raise AssertionError(f"K1 keep mask differs from plain: {out['checks'][-1]}")
+        return got
+
     for batch in (1, 8, 128):
         cand, valid = nms_inputs(batch, gen, dev)
-        got = nk.greedy_nms(cand, valid, 0.45)
-        torch.cuda.synchronize()
-        want = nk.greedy_nms_reference(cand, valid, 0.45)
-        mismatches = int((got != want).sum())
-        out[f"B{batch}_kept"] = int(got.sum())
-        out[f"B{batch}_mismatches"] = mismatches
-        if mismatches:
-            emit(out)
-            raise AssertionError(f"K1 keep mask differs from plain at B={batch}")
-        if batch in (1, 128):
-            ms, plain_ms = ab_ms(
+        got = check(cand, valid, "center", {"case": "serving"})
+        ms, plain_ms = ab_ms(
+            lambda: nk.greedy_nms(cand, valid, 0.45),
+            lambda: nk.greedy_nms_reference(cand, valid, 0.45),
+            iters=50, plain_iters=3,
+        )
+        out[f"B{batch}_ms"], out[f"B{batch}_plain_ms"] = ms, plain_ms
+        out[f"B{batch}_bound_ms"], out[f"B{batch}_bound_by"] = nms_bound(cand, valid, got)
+        # the card's share of that time: 20 calls replayed as one CUDA graph,
+        # with no host work between the launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                nk.greedy_nms(cand, valid, 0.45)
+        out[f"B{batch}_device_ms"] = cuda_ms(graph.replay, 10) / 20
+    # K off a multiple of 32, at the one-launch limit, and past it (two
+    # launches, the bits in device memory), in both box formats
+    for k, batch in ((100, 3), (1024, 2), (1500, 2), (2048, 2)):
+        cand, valid = nms_inputs(batch, gen, dev, k=k)
+        for fmt in ("center", "top_left"):
+            check(cand, valid, fmt, {"case": "sizes"})
+        if k == 2048:
+            nan = cand.clone()
+            nan[0, 7, 3] = float("nan")
+            nan[1, 1500, 0] = float("inf")
+            check(nan, valid, "center", {"case": "nan_box"})
+            out["K2048_B2_ms"], out["K2048_B2_plain_ms"] = ab_ms(
                 lambda: nk.greedy_nms(cand, valid, 0.45),
                 lambda: nk.greedy_nms_reference(cand, valid, 0.45),
-                iters=50, plain_iters=3,
+                iters=20, plain_iters=2,
             )
-            out[f"B{batch}_ms"], out[f"B{batch}_plain_ms"] = ms, plain_ms
-        if batch == 128:
-            bound = nms_bound(cand, valid, got)
-    out["B128_bound_ms"], out["B128_bound_by"] = bound
+    cand, valid = nms_inputs(4, gen, dev)
+    check(cand, torch.zeros_like(valid), "center", {"case": "all_invalid"})
+    # one class, heavily overlapping: long chains in which cleared boxes
+    # must clear nothing
+    for k in (K, 2048):
+        chain, chain_valid = nms_inputs(2, gen, dev, k=k, classes=1)
+        chain[..., 0:2] = 0.5 + 0.2 * (chain[..., 0:2] - 0.5)
+        chain[..., 2:4] = 0.3 + 0.1 * chain[..., 2:4]
+        check(chain, chain_valid, "center", {"case": "one_class_chains"})
+    nan = cand.clone()
+    nan[0, 3, 2] = float("nan")
+    nan[1, 0, 0] = float("nan")
+    nan[2, 200, 5] = float("nan")
+    nan[3, 40, 1] = float("inf")
+    check(nan, valid, "center", {"case": "nan_box"})
     emit(out)
     return {"max_abs_err": 0.0, "ms": out["B128_ms"], "plain_ms": out["B128_plain_ms"],
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "bound_ms": out["B128_bound_ms"], "bound_by": out["B128_bound_by"],
+            "library_ms": None}
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -297,16 +359,24 @@ def phase_k2(dev, gen):
             raise AssertionError(f"K2 took the geometry {hw}x{hw}x{c}")
     for batch in (8, 128):
         args = stage_inputs(batch, 26, 512, 8, gen, dev)
+        # the K-major weight copies, made once as ResidualStage.kmajor makes them
+        kmajor = rk.kmajor_weights(args[1], args[3])
         if batch == 128:  # the timed shape is held against the plain version too
             check(args, "leaky_relu", {"h": 26, "w": 26, "c": 512, "n": 8, "B": batch})
+        given = rk.fused_residual_stage(*args, activation="leaky_relu", kmajor=kmajor)
+        require(torch.equal(given, rk.fused_residual_stage(*args, activation="leaky_relu")),
+                "K2 with K-major weights given differs from K2 making them itself")
         ms, plain_ms = ab_ms(
-            lambda: rk.fused_residual_stage(*args, activation="leaky_relu"),
+            lambda: rk.fused_residual_stage(*args, activation="leaky_relu", kmajor=kmajor),
             lambda: rk.fused_residual_stage_reference(*args, activation="leaky_relu"),
             iters=10, plain_iters=3,
         )
         key = f"26x26x512_B{batch}"
         out[f"{key}_ms"] = ms
         out[f"{key}_plain_ms"] = plain_ms
+        # the wrapper transposing the weights itself on every call
+        out[f"{key}_wrapper_kmajor_ms"] = cuda_ms(
+            lambda: rk.fused_residual_stage(*args, activation="leaky_relu"), 10)
         out[f"{key}_bf16_layers_ms"] = cuda_ms(lambda: layer_path(*args, "leaky_relu"), 10)
         out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = stage_bound(args[0], args[1], args[3],
                                                                      BF16_FLOPS)
@@ -324,7 +394,7 @@ def phase_k3(dev, gen):
 
     out = {"phase": "k3", "kernel": "pairwise_iou", "checks": []}
     worst = 0.0
-    for k in (256, 1000, 4096):
+    for k in (1, 255, 256, 1000, 1001, 4096):
         boxes = torch.cat([torch.rand(k, 2, generator=gen) * 0.8 + 0.1,
                            torch.rand(k, 2, generator=gen) * 0.38 + 0.02], dim=1).to(dev)
         for fmt in ("center", "top_left"):
@@ -332,8 +402,8 @@ def phase_k3(dev, gen):
             torch.cuda.synchronize()
             want = ik.pairwise_iou_reference(_top_left(boxes, fmt))
             err = (got - want).abs().max().item()
-            out["checks"].append({"K": k, "format": fmt, "mismatches": int((got != want).sum()),
-                                  "max_abs_err": err})
+            out["checks"].append({"K": k, "format": fmt, "vector_stores": ik.vector_stores(k),
+                                  "mismatches": int((got != want).sum()), "max_abs_err": err})
             worst = max(worst, err)
             if out["checks"][-1]["mismatches"]:
                 emit(out)
@@ -345,13 +415,22 @@ def phase_k3(dev, gen):
                 iters=50, plain_iters=10,
             )
             out[f"K{k}_ms"], out[f"K{k}_plain_ms"] = ms, plain_ms
-            # top-left input: the wrapper converts nothing, so this is the
-            # kernel plus the wrapper's own host work
             out[f"K{k}_top_left_ms"] = cuda_ms(lambda: ik.pairwise_iou(boxes, "top_left"), 50)
+        if k == 4096:
+            # a NaN and an infinite box take the kernel's exact min / max path
+            odd = boxes.clone()
+            odd[5, 2] = float("nan")
+            odd[77, 0] = float("inf")
+            got = ik.pairwise_iou(odd, "center")
+            want = ik.pairwise_iou_reference(_top_left(odd, "center"))
+            same = (got == want) | (got.isnan() & want.isnan())
+            out["K4096_nonfinite_mismatches"] = int((~same).sum())
+            require(bool(same.all()), "K3 differs from plain on non-finite boxes")
     # K = 4096: the boxes read once, the K x K f32 matrix written once, about
     # 15 f32 operations per pair
     out["K4096_bound_ms"], out["K4096_bound_by"] = bound_of(
         4096 * 4 * 4 + 4096 * 4096 * 4, 15.0 * 4096 * 4096, F32_FLOPS)
+    out["K4096_share_of_bound"] = out["K4096_bound_ms"] / out["K4096_ms"]
     emit(out)
     return {"max_abs_err": worst, "ms": out["K4096_ms"], "plain_ms": out["K4096_plain_ms"],
             "bound_ms": out["K4096_bound_ms"], "bound_by": out["K4096_bound_by"],
@@ -545,7 +624,43 @@ def phase_main(dev):
     if not max(errs) <= HEAD_RTOL:
         raise AssertionError(f"raw heads differ from the f32 CPU forward: {errs}")
     return (launches, out["pairwise_iou_launches"],
-            {k: v for k, v in out.items() if k.endswith("_images_per_s")})
+            {k: v for k, v in out.items() if k.endswith("_images_per_s")}, (x1, cpu_heads))
+
+
+def phase_main_f32(dev, x1, cpu_heads):
+    """The float32 predictor on the card: K2 takes bf16 only, so its router
+    must leave the 26x26x512 stage on the layer path."""
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+
+    model_cfg, plan, tree = full_model()
+    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev,
+                     compute_dtype=torch.float32)
+    out = {"phase": "main_f32", "model": "darknet53 yolov3, 80 classes, 416px, float32 (TF32 off)",
+           "tol_rel_rms": HEAD_RTOL_F32}
+    x = torch.from_numpy(
+        np.random.default_rng(SEED + 2).uniform(size=(2, 416, 416, 3)).astype(np.float32)).to(dev)
+    nms_kernel.launches = 0
+    resblock_kernel.launches = 0
+    iou_kernel.launches = 0
+    kept, mask = pred.predict_batch(x)
+    torch.cuda.synchronize()
+    launches = {"greedy_nms": nms_kernel.launches,
+                "fused_residual_stage": resblock_kernel.launches,
+                "pairwise_iou": iou_kernel.launches}
+    out["launches"] = launches
+    require(kept.shape == (2, K, 6) and mask.shape == (2, K) and mask.dtype == torch.bool
+            and bool(torch.isfinite(kept).all()), "float32 predict_batch misshapen or not finite")
+    dev_heads = pred.raw_heads(x1)
+    errs = [((d.float().cpu() - c).norm() / c.norm()).item() for d, c in zip(dev_heads, cpu_heads)]
+    out["head_rel_rms_err"] = errs
+    emit(out)
+    if launches["fused_residual_stage"] or not launches["greedy_nms"]:
+        raise AssertionError(f"float32 path: K2 must not launch and K1 must: {launches}")
+    if not max(errs) <= HEAD_RTOL_F32:
+        raise AssertionError(f"float32 raw heads differ from the f32 CPU forward: {errs}")
+    return launches
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -621,7 +736,31 @@ def phase_main_int8(dev, bf16_rates):
     # a property of PTQ on random weights, not of the port: not gated
     out["head_cos_int8_vs_bf16"] = [cosine(a.float(), b.float())
                                     for a, b in zip(dev_heads, bf16_heads)]
+    # a predictor built for 608px, quantized the same way, fed the 416px
+    # B=8 batch: the stage is routed on the call's shape, so K4 launches
+    # (8 blocks) and the trunk codes are those of the 416px predictor
+    pred608 = Predictor.from_folded(model_cfg, tree, device=dev, image_size=608).quantize(calib)
+    x8 = batches[8]
+    trunk608, trunk416, k4_launches = [], [], []
+    with torch.inference_mode():
+        for p, sink in ((pred608, trunk608), (pred, trunk416)):
+            resblock_int8_kernel.launches = 0
+            apply_inference_int8(plan, p._qparams, x8, compute_dtype=p.compute_dtype,
+                                 packed=p._packed, head_inputs=sink, **kw)
+            k4_launches.append(resblock_int8_kernel.launches)
+    out["built_608_fed_416"] = {
+        "k4_launches_per_call": k4_launches[0],
+        "k4_launches_per_call_built_416": k4_launches[1],
+        "trunk_code_mismatches": sum(int((a != b).sum()) for ta, tb in zip(trunk608, trunk416)
+                                     for a, b in zip(ta, tb))}
+    kept608, mask608 = pred608.predict_batch(x8)
+    kept416, mask416 = pred.predict_batch(x8)
+    out["built_608_fed_416"]["predict_batch_equal"] = bool(
+        torch.equal(kept608, kept416) and torch.equal(mask608, mask416))
     emit(out)
+    if out["built_608_fed_416"] != {"k4_launches_per_call": 8, "k4_launches_per_call_built_416": 8,
+                                    "trunk_code_mismatches": 0, "predict_batch_equal": True}:
+        raise AssertionError(f"a 608px-built int8 predictor fed 416px: {out['built_608_fed_416']}")
     require(len(codes) == 3, f"expected one trunk tensor per head, got {len(codes)}")
     if not max(c["frac_differing"] for c in codes) <= INT8_TRUNK_MAX_FRAC:
         raise AssertionError(f"int8 trunk codes differ from the int8 CPU forward: {codes}")
@@ -654,10 +793,13 @@ def main() -> int:
     k2 = phase_k2(dev, gen)
     k3 = phase_k3(dev, gen)
     k4 = phase_k4(dev, np.random.default_rng(SEED))
-    launches, iou_main, bf16_rates = phase_main(dev)
+    launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
+    launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
-    nms_by_path = {"main": launches["greedy_nms"], "main_int8": launches_int8["greedy_nms"]}
-    iou_by_path = {"main": iou_main, "main_int8": iou_int8}
+    nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
+                   "main_int8": launches_int8["greedy_nms"]}
+    iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
+                   "main_int8": iou_int8}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -667,7 +809,9 @@ def main() -> int:
         {"name": "fused_residual_stage", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/resblock.cu",
          "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py:100",
-         "launches": launches["fused_residual_stage"], **k2},
+         "launches": launches["fused_residual_stage"],
+         "launches_by_path": {"main": launches["fused_residual_stage"],
+                              "main_f32": launches_f32["fused_residual_stage"]}, **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/iou.cu",

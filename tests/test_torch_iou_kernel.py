@@ -60,3 +60,43 @@ def test_rejects_bad_input():
     # only CPU tensors take the plain version, never a silent fallback
     with pytest.raises(ValueError, match="unsupported device"):
         ik.pairwise_iou(torch.zeros(8, 4, device="meta"))
+
+
+@pytest.mark.parametrize("k,vector", [(1, False), (255, False), (256, True), (1000, True),
+                                      (1001, False)])
+def test_launcher_store_variant(k, vector):
+    # rows of a (K, K) f32 matrix are 16-byte aligned only when K % 4 == 0;
+    # other K take the scalar-store variant of the kernel
+    assert ik.vector_stores(k) is vector
+    assert vector == ((k * 4) % 16 == 0)
+
+
+@pytest.mark.parametrize("box_format", ["center", "top_left"])
+@pytest.mark.parametrize("k", [1, 200, 255, 256])
+def test_per_box_precompute_equals_plain(k, box_format):
+    # the CUDA kernel computes x2, y2 and the area once per box (csrc/boxes.cuh,
+    # emulated by tests/k1_sweep.py); the plain version computes them per
+    # pair. Same operations on the same inputs: equal bit for bit, also on
+    # NaN and infinite boxes
+    from k1_sweep import pairwise_iou_once
+
+    boxes = torch.from_numpy(_boxes(k, k + 1))
+    if k > 8:
+        boxes[3, 2] = float("nan")
+        boxes[5, 0] = float("inf")
+    got = pairwise_iou_once(boxes, box_format)
+    want = ik.pairwise_iou(boxes, box_format)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(nan=-1.0), want.nan_to_num(nan=-1.0))
+
+
+@pytest.mark.parametrize("box_format", ["center", "top_left"])
+@pytest.mark.parametrize("k", [200, 256])
+def test_per_box_precompute_matches_jax_kernel(k, box_format):
+    # against the Pallas kernel in interpret mode: the tolerance of
+    # test_plain_matches_jax_kernel (XLA may fuse the f32 ops differently)
+    from k1_sweep import pairwise_iou_once
+
+    boxes = _boxes(k, k)
+    got = pairwise_iou_once(torch.from_numpy(boxes), box_format)
+    np.testing.assert_allclose(got.numpy(), _jax_iou(boxes, box_format), rtol=0, atol=2.5e-7)

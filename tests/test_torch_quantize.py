@@ -140,23 +140,75 @@ def wide_stage():
 # the stage is (size/2)^2 x 512: K4's class is 16^2 <= h*w <= 32^2
 @pytest.mark.parametrize("size,routed", [(16, False), (32, True), (64, True), (128, False)])
 def test_pack_int8_packs_k4_operands_only_where_routed(wide_stage, size, routed):
+    # K4's operands are packed for the C = 512 stage whatever the image size
+    # (pack_int8 no longer takes one); whether a call is routed to the fused
+    # stage is decided on the call's own shape
+    from yolo_for_turbines_tpu_torch.ops.kernels import resblock_int8_kernel as rk
+
     plan, qp = wide_stage
-    stage = tq.pack_int8(plan, qp, size, torch.float32)[3]  # packed[0] is the input scale
-    assert (stage["stage"] is not None) == routed
-    # K4's K-major weight copies are made with its operands, and only then
-    assert (stage["stage_kmajor"] is not None) == routed
-    if routed:
-        w1t, w2t = stage["stage_kmajor"]
-        w1q, w2q = stage["stage"][0], stage["stage"][4]
-        assert tuple(w1t.shape) == (1, 256, 512) and tuple(w2t.shape) == (1, 512, 9 * 256)
-        assert w1t.is_contiguous() and w2t.is_contiguous()
-        assert torch.equal(w1t, w1q.transpose(1, 2))
-        assert torch.equal(w2t, w2q.reshape(1, 9 * 256, 512).transpose(1, 2))
+    packed = tq.pack_int8(plan, qp, torch.float32)
+    stage = packed[3]  # packed[0] is the input scale
+    assert stage["stage"] is not None and stage["stage_kmajor"] is not None
+    # the narrow stem convs carry no fused operands
+    assert all("stage" not in q for q in packed[1:3])
+    w1t, w2t = stage["stage_kmajor"]
+    w1q, w2q = stage["stage"][0], stage["stage"][4]
+    assert tuple(w1t.shape) == (1, 256, 512) and tuple(w2t.shape) == (1, 512, 9 * 256)
+    assert w1t.is_contiguous() and w2t.is_contiguous()
+    assert torch.equal(w1t, w1q.transpose(1, 2))
+    assert torch.equal(w2t, w2q.reshape(1, 9 * 256, 512).transpose(1, 2))
     # the layer path's weights are views of the quantized tree, not copies
     want = qp["layers"][2]["blocks"][0]
     got = stage["blocks"][0]
     assert got["w1"].data_ptr() == want["w1q"].data_ptr()
     assert got["w2"].data_ptr() == want["w2q"].data_ptr()
+    # the call at this size is routed, or stays on the layer path
+    xq = torch.zeros(1, size // 2, size // 2, 512, dtype=torch.int8)
+    fused = rk.apply_residual_stage_int8_fused(stage["stage"], xq, "leaky_relu",
+                                               kmajor=stage["stage_kmajor"])
+    assert (fused is not None) == routed == rk.geometry_wins(size // 2, size // 2, 512)
+
+
+@pytest.mark.parametrize("built,called", [(16, 32), (32, 16), (128, 64), (64, 128)])
+def test_int8_codes_do_not_depend_on_the_size_a_predictor_was_built_for(
+        wide_stage, built, called, monkeypatch):
+    # a predictor made for one image size and called at another gives, bit
+    # for bit, the trunk codes and heads of one made for the called size:
+    # the fused stage multiplies by reciprocals where the layer path divides,
+    # so routing fixed at build time would change the codes
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.yolov3 import FoldedYOLOv3
+    from yolo_for_turbines_tpu_torch.ops.kernels import resblock_int8_kernel as rk
+
+    plan, qp = wide_stage
+    cfg = ModelConfig(num_classes=2,
+                      layer_config=((8, 3, 1), (512, 3, 2), ("B", 1), (16, 1, 1), "S"))
+    routed = []  # per forward: did the router take the fused stage
+
+    def spy(*args, **kwargs):
+        fused = rk.apply_residual_stage_int8_fused(*args, **kwargs)
+        routed.append(fused is not None)
+        return fused
+
+    monkeypatch.setattr(tq, "apply_residual_stage_int8_fused", spy)
+    x = torch.from_numpy(
+        np.random.default_rng(called).uniform(size=(2, called, called, 3)).astype(np.float32))
+    heads, trunks = [], []
+    for size in (built, called):
+        pred = Predictor(FoldedYOLOv3(cfg, plan), device="cpu", image_size=size)
+        pred.set_qparams(qp)
+        heads.append(pred.raw_heads(x))
+        trunk = []
+        tq.apply_inference_int8(plan, qp, x, compute_dtype=torch.float32, raw_heads=True,
+                                packed=pred._packed, head_inputs=trunk)
+        trunks.append(trunk)
+    for a, b in zip(*heads):
+        assert torch.equal(a, b)
+    for a, b in zip(*trunks):
+        assert len(a) == len(b) == 1 and torch.equal(a[0], b[0])
+    # both took the same route, the one of the called size
+    assert routed == [rk.geometry_wins(called // 2, called // 2, 512)] * 4
 
 
 def test_apply_inference_int8_reports_head_inputs(quantized):

@@ -85,10 +85,8 @@ def test_stage_leaves_input_unchanged():
 )
 def test_router_gate_on_darknet53_geometries(h, c, wins):
     # only the 26x26x512 stage at 416px takes the fused kernel, at any batch
-    assert rk.stage_wins(h, h, c) is wins
-    x = torch.zeros(1, h, h, c) if not wins else None
-    if x is not None:
-        assert rk.apply_residual_stage_fused(None, x, "leaky_relu") is None
+    assert rk.geometry_wins(h, h, c) is wins
+    assert rk.stage_wins(h, h, c, torch.bfloat16, "cuda") is wins
 
 
 def test_stack_block_params_matches_jax_layout():
@@ -149,11 +147,115 @@ def test_routed_geometries_pass_the_wrapper_check(size):
     # the wrapper's geometry check; the others raise it
     for stride, c in _STAGES:
         hw = size // stride
-        if rk.stage_wins(hw, hw, c):
+        if rk.stage_wins(hw, hw, c, torch.bfloat16, "cuda"):
             assert rk.kernel_takes(hw, hw, c)
             rk._check_cuda_args(*_meta_stage(hw, hw, c), "leaky_relu")
         elif not rk.kernel_takes(hw, hw, c):
             with pytest.raises(ValueError, match="the kernel takes"):
                 rk._check_cuda_args(*_meta_stage(hw, hw, c), "leaky_relu")
-    routed = [(size // s, c) for s, c in _STAGES if rk.stage_wins(size // s, size // s, c)]
+    routed = [(size // s, c) for s, c in _STAGES
+              if rk.stage_wins(size // s, size // s, c, torch.bfloat16, "cuda")]
     assert routed == ([(size // 16, 512)] if size <= 512 else [])
+
+
+@pytest.mark.parametrize("size", range(320, 609, 32))
+def test_router_sends_only_bf16_cuda_stages_to_the_kernel(size):
+    # the CUDA kernel is bf16 only: a float32 or float16 stage on CUDA is
+    # routed to the layer path at every Darknet-53 stage, a bf16 one where
+    # the geometry wins; on the CPU the plain version takes every dtype
+    for stride, c in _STAGES:
+        hw = size // stride
+        geometry = rk.geometry_wins(hw, hw, c)
+        assert geometry == (c == 512 and size <= 512)
+        assert rk.stage_wins(hw, hw, c, torch.bfloat16, "cuda") is geometry
+        for dtype in (torch.float32, torch.float16):
+            assert rk.stage_wins(hw, hw, c, dtype, "cuda") is False
+            assert rk.stage_wins(hw, hw, c, dtype, "cpu") is geometry
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_direct_call_with_a_non_bf16_cuda_tensor_still_raises(dtype):
+    # routing is the router's business; the wrapper itself takes bf16 or raises
+    args = list(_meta_stage(26, 26, 512))
+    args[0] = args[0].to(dtype)
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        rk._check_cuda_args(*args, "leaky_relu")
+
+
+def _filled_stage(channels, n, dtype):
+    torch.manual_seed(1)
+    stage = ResidualStage(PlanResidual(channels=channels, num_blocks=n))
+    with torch.no_grad():
+        for blk in stage.blocks:
+            for conv in blk.values():
+                conv.weight.normal_(0, 0.05)
+                conv.bias.normal_(0, 0.1)
+    return stage.to(dtype)
+
+
+def test_stage_caches_kmajor_weights_equal_to_the_wrappers_transposes():
+    stage = _filled_stage(512, 2, torch.bfloat16)
+    w1s, b1s, w2s, b2s = stage.stacked()
+    w1t, w2t = stage.kmajor()
+    assert tuple(w1t.shape) == (2, 256, 512) and tuple(w2t.shape) == (2, 512, 9 * 256)
+    assert w1t.is_contiguous() and w2t.is_contiguous() and w1t.dtype == torch.bfloat16
+    # what the wrapper makes itself when a caller gives none
+    want1, want2 = rk.kmajor_weights(w1s, w2s)
+    assert torch.equal(w1t, want1) and torch.equal(w2t, want2)
+    assert torch.equal(w1t, w1s.reshape(2, 512, 256).transpose(1, 2))
+    assert torch.equal(w2t, w2s.reshape(2, 9 * 256, 512).transpose(1, 2))
+    # row o of W2 holds output channel o: tap-major, then input channel
+    conv2 = stage.blocks[1]["conv2"].weight  # OIHW
+    assert torch.equal(w2t[1, 7].reshape(3, 3, 256), conv2[7].permute(1, 2, 0))
+    # cached: the same tensors on the next call
+    assert stage.kmajor()[0] is w1t and stage.stacked()[0] is w1s
+
+
+def test_stage_drops_kmajor_weights_on_to_and_makes_none_it_cannot_use():
+    stage = _filled_stage(512, 1, torch.bfloat16)
+    first = stage.kmajor()
+    assert first is not None
+    stage.to(torch.float32)
+    assert stage._kmajor is None and stage._stacked is None
+    # the kernel takes bf16 and C = 512 only: no copies for anything else
+    assert stage.kmajor() is None
+    stage.to(torch.bfloat16)
+    again = stage.kmajor()
+    assert again is not None and again[0] is not first[0] and torch.equal(again[0], first[0])
+    assert _filled_stage(64, 1, torch.bfloat16).kmajor() is None
+
+
+def test_stage_drops_kernel_copies_on_load_state_dict():
+    stage = _filled_stage(512, 1, torch.bfloat16)
+    old1, old2 = stage.kmajor()
+    other = {k: torch.randn_like(v.float()).to(v.dtype) for k, v in stage.state_dict().items()}
+    stage.load_state_dict(other)
+    assert stage._kmajor is None and stage._stacked is None
+    w1s, _, w2s, _ = stage.stacked()
+    want1, want2 = rk.kmajor_weights(w1s, w2s)
+    new1, new2 = stage.kmajor()
+    assert torch.equal(new1, want1) and torch.equal(new2, want2)
+    assert not torch.equal(new1, old1) and not torch.equal(new2, old2)
+
+
+def test_stage_forward_makes_no_kernel_copies_when_not_routed():
+    # a call that stays on the layer path (the dtype-free geometry class
+    # loses at 8x8) stacks nothing; a routed CPU call stacks but needs no
+    # K-major copies, which only the CUDA kernel reads
+    stage = _filled_stage(512, 1, torch.float32)
+    act = get_activation("leaky_relu")
+    with torch.inference_mode():
+        stage(torch.zeros(1, 512, 8, 8), act, "leaky_relu", fuse=True)
+        assert stage._stacked is None and stage._kmajor is None
+        stage(torch.zeros(1, 512, 16, 16), act, "leaky_relu", fuse=True)
+    assert stage._stacked is not None and stage._kmajor is None
+
+
+def test_wrapper_rejects_misshapen_kmajor_weights():
+    x, w1s, b1s, w2s, b2s = _meta_stage(16, 16, 512)
+    good = (torch.empty(2, 256, 512, dtype=torch.bfloat16, device="meta"),
+            torch.empty(2, 512, 9 * 256, dtype=torch.bfloat16, device="meta"))
+    rk._check_cuda_args(x, w1s, b1s, w2s, b2s, "leaky_relu", good)
+    with pytest.raises(ValueError, match="K-major"):
+        rk._check_cuda_args(x, w1s, b1s, w2s, b2s, "leaky_relu",
+                            (good[0], good[1].transpose(1, 2)))

@@ -95,7 +95,7 @@ def test_pack_int8_stage_matches_jax():
 )
 def test_router_gate_on_darknet53_geometries(h, c, wins):
     # only the 26x26x512 stage at 416px takes the fused kernel, at any batch
-    assert rk.int8_stage_wins(h, h, c) is wins
+    assert rk.geometry_wins(h, h, c) is wins
     if not wins:
         assert rk.apply_residual_stage_int8_fused(None, torch.zeros(1, h, h, c, dtype=torch.int8),
                                                   "leaky_relu") is None

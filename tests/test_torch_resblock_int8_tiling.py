@@ -112,8 +112,8 @@ def test_router_agrees_with_wrapper_and_bf16_router(size, stride, c):
     # own, only geometries the wrapper's check accepts; what the kernel does
     # not take raises there
     hw = size // stride
-    routed = rk.int8_stage_wins(hw, hw, c)
-    assert routed == k2.stage_wins(hw, hw, c)
+    routed = rk.geometry_wins(hw, hw, c)
+    assert routed == k2.stage_wins(hw, hw, c, torch.bfloat16, "cuda")
     assert routed == (c == 512 and size <= 512)
     xq, ops, kmajor = _meta_args(hw, hw, c)
     if routed:

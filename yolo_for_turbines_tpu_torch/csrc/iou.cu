@@ -1,76 +1,115 @@
-// Pairwise IoU matrix: (K, 4) top-left xywh boxes -> (K, K) f32,
+// Pairwise IoU matrix: (K, 4) boxes -> (K, K) f32,
 //     out[i][j] = inter(i, j) / (area_i + area_j - inter(i, j) + 1e-6).
 //
 // Replaces the Pallas kernel yolo_for_turbines_tpu/ops/pallas/iou_kernel.py
 // (pairwise_iou_pallas / _iou_tile_kernel). The TPU kernel tiles the matrix
 // in 128x128 blocks, pads K with zero-area boxes, and feeds box j as a (4, K)
-// column copy so it broadcasts along lanes. Here each CTA owns a 32-column x
-// 8-row tile, one thread per output element: the CTA stages its 32 column
-// boxes and 8 row boxes in shared memory, and threads of a warp write 32
-// neighbouring floats of one row (128-byte stores). Ragged edges are masked,
-// so K needs no padding. The Python wrapper converts center boxes to
-// top-left, so this kernel and its plain torch version see the same floats.
-//
-// Exactness: the matrix must equal the plain torch version bit for bit. The
-// arithmetic uses the _rn intrinsics, which the compiler never contracts
-// into FMAs, in the operation order of _iou_tile_kernel; the division is
-// IEEE. min/max propagate NaN like torch.minimum / torch.maximum.
+// column copy so it broadcasts along lanes.
 //
 // Bound on the H100: device-memory writes. K*K*4 bytes go out (64 MB at
-// K = 4096) for about 15 flops per element, far below the card's compute
-// rate; reads are 16 bytes per box per tile. Measured with the wrapper at
-// K = 4096: 0.077 ms, 0.87 TB/s of writes (H100 80GB HBM3, 700 W power
-// limit); at K = 256 the wrapper's host work sets the time.
+// K = 4096, more than the 50 MB L2) for a few dozen instructions per element;
+// the K boxes read are nothing beside that. The first CUDA version gave one
+// element and one 4-byte store to each thread of a 32 x 8 tile (65,536 CTAs
+// at K = 4096, each staging 40 boxes behind a barrier to write 1 KB) and
+// reached a quarter of the card's write rate.
+//
+// Design: a thread owns 4 neighbouring columns and several rows. It loads
+// and converts its 4 column boxes once (corners and area in registers, the
+// centre conversion included: nothing runs before the launch), then per row
+// reads the row box (one address per warp, a broadcast), computes 4 IoUs and
+// writes them as one 16-byte store, so a warp writes 512 contiguous bytes of
+// a row. A CTA of 8 warps covers 128 columns and 64 rows, warp y taking
+// rows y, y + 8, ...; no shared memory, no barrier. The stores are
+// streaming (__stcs): the matrix is written once and not read here. The
+// min / max of the formula must propagate NaN as torch does, which costs
+// several instructions each; a thread whose boxes all have finite corners
+// takes single-instruction min / max, which give the same floats there
+// (boxes.cuh). Rows are 16-byte aligned only when K % 4 == 0: for other K
+// the launcher takes the scalar variant of the same kernel, in which a
+// thread's 4 columns lie 32 apart so that each store instruction of a warp
+// still writes 128 contiguous bytes. Ragged edges are masked, so K needs no
+// padding.
+//
+// Exactness: the matrix equals the plain torch version bit for bit
+// (boxes.cuh: _rn intrinsics in the Pallas operation order, IEEE division).
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W power limit), chip_smoke.py
+// phase k3, wrapper included, K = 4096: 0.029 ms for centre and for top-left
+// boxes, 69% of the 0.020 ms that 67 MB take at 3.35 TB/s (a fill of the same
+// 64 MB by torch takes 0.024 ms); the first version in the same call 0.089 ms
+// (centre) and 0.078 ms (top-left). Both constants below were picked by
+// measurement there. Rows per CTA: 0.049 ms at 8, 0.035 at 16, 0.030 at 32,
+// 0.029 at 64, 128 and 256; plain stores instead of streaming ones cost 2%. What was left after the stores were wide: the IEEE division,
+// whose slow path a zero numerator takes (boxes.cuh), had doubled the time.
+// At K = 256 the host's call rate sets the time (0.02 ms). PERF.md has the
+// runs.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "boxes.cuh"
 
 namespace {
 
-constexpr int kCols = 32;  // tile width (one warp along a row)
-constexpr int kRows = 8;   // tile height (warps per CTA)
+using boxes::Box;
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
+constexpr int kWarps = 8;            // warps per CTA, one row each per pass
+constexpr int kTileCols = 128;       // 32 lanes x 4 columns
+constexpr int kRows = 64;            // rows of the matrix per CTA
 
-__device__ __forceinline__ float min_nan(float a, float b) {
-    return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kWarps)
+pairwise_iou_kernel(const float4* __restrict__ in, int k, int center, float* __restrict__ out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int j0 = blockIdx.x * kTileCols + (kVec ? 4 * lane : lane);
+    constexpr int kStep = kVec ? 1 : 32;  // distance between a thread's columns
+    if (j0 >= k) return;
 
-__global__ void __launch_bounds__(kCols * kRows)
-pairwise_iou_kernel(const float4* __restrict__ boxes, int k, float* __restrict__ out) {
-    __shared__ float4 cols[kCols];
-    __shared__ float4 rows[kRows];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int j0 = blockIdx.x * kCols, i0 = blockIdx.y * kRows;
-    if (ty == 0 && j0 + tx < k) cols[tx] = boxes[j0 + tx];
-    if (ty == 1 && tx < kRows && i0 + tx < k) rows[tx] = boxes[i0 + tx];
-    __syncthreads();
+    Box cols[4];
+    bool finite = true;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int j = j0 + c * kStep;
+        const float4 v = j < k ? in[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+        cols[c] = boxes::make_box(v.x, v.y, v.z, v.w, center != 0);
+        finite = finite && boxes::corners_finite(cols[c]);
+    }
 
-    const int i = i0 + ty, j = j0 + tx;
-    if (i >= k || j >= k) return;
-    const float4 bi = rows[ty];
-    const float4 bj = cols[tx];
-    const float xa = max_nan(bi.x, bj.x);
-    const float ya = max_nan(bi.y, bj.y);
-    const float xb = min_nan(__fadd_rn(bi.x, bi.z), __fadd_rn(bj.x, bj.z));
-    const float yb = min_nan(__fadd_rn(bi.y, bi.w), __fadd_rn(bj.y, bj.w));
-    const float inter = __fmul_rn(max_nan(__fsub_rn(xb, xa), 0.f),
-                                  max_nan(__fsub_rn(yb, ya), 0.f));
-    const float uni = __fsub_rn(__fadd_rn(__fmul_rn(bi.z, bi.w), __fmul_rn(bj.z, bj.w)),
-                                inter);
-    out[static_cast<size_t>(i) * k + j] = __fdiv_rn(inter, __fadd_rn(uni, 1e-6f));
+    const int i_begin = blockIdx.y * kRows;
+    const int i_end = min(k, i_begin + kRows);
+    for (int i = i_begin + warp; i < i_end; i += kWarps) {
+        const float4 v = __ldg(in + i);
+        const Box row = boxes::make_box(v.x, v.y, v.z, v.w, center != 0);
+        float r[4];
+        if (finite && boxes::corners_finite(row)) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) r[c] = boxes::iou<true>(row, cols[c]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) r[c] = boxes::iou<false>(row, cols[c]);
+        }
+        float* p = out + static_cast<size_t>(i) * k + j0;
+        if (kVec) {  // K % 4 == 0: j0 + 3 < k and p is 16-byte aligned
+            __stcs(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                if (j0 + c * kStep < k) __stcs(p + c * kStep, r[c]);
+            }
+        }
+    }
 }
 
 }  // namespace
 
-// boxes (K, 4) f32 top-left xywh, contiguous and 16-byte aligned; out (K, K)
-// f32 contiguous. Returns cudaGetLastError().
-extern "C" int pairwise_iou_launch(const void* boxes, int k, void* out, void* stream) {
+// boxes (K, 4) f32, contiguous and 16-byte aligned: cxcywh when center != 0,
+// else top-left xywh; out (K, K) f32 contiguous, 16-byte aligned.
+// K % 4 == 0 takes the 16-byte-store variant, other K the scalar one.
+// Returns cudaGetLastError().
+extern "C" int pairwise_iou_launch(const void* boxes, int k, int center, void* out, void* stream) {
     if (k <= 0 || (k + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((k + kCols - 1) / kCols, (k + kRows - 1) / kRows);
-    pairwise_iou_kernel<<<grid, dim3(kCols, kRows), 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(boxes), k, static_cast<float*>(out));
+    const dim3 grid((k + kTileCols - 1) / kTileCols, (k + kRows - 1) / kRows);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* in = static_cast<const float4*>(boxes);
+    auto* o = static_cast<float*>(out);
+    auto kernel = k % 4 == 0 ? pairwise_iou_kernel<true> : pairwise_iou_kernel<false>;
+    kernel<<<grid, 32 * kWarps, 0, s>>>(in, k, center, o);
     return static_cast<int>(cudaGetLastError());
 }

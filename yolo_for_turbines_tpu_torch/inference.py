@@ -5,8 +5,9 @@ runs the folded-BN forward with raw heads, the three-scale decode and the
 fixed-shape class-aware NMS on the predictor's device and returns the K
 survivors per image; ``predict_images`` and ``predict_image`` wrap it with
 letterbox and un-letterbox. On CUDA the 26x26x512 residual stage runs the
-fused kernel (``ops/kernels/resblock_kernel.py``) and NMS runs the fused
-greedy kernel (``ops/kernels/nms_kernel.py``).
+fused kernel (``ops/kernels/resblock_kernel.py``) when the compute dtype is
+bf16 (the kernel's only dtype; float32 and float16 take the cuDNN layer
+path) and NMS runs the fused greedy kernel (``ops/kernels/nms_kernel.py``).
 
 ``quantize`` switches a predictor to the int8 PTQ path
 (``models/quantize.py``): the same three entry points then run the int8
@@ -113,10 +114,11 @@ class Predictor:
     def set_qparams(self, qparams) -> None:
         """Serve from a quantized tree (``quantize_folded`` or
         ``models/convert.py::qparams_from_numpy`` output on this device);
-        the scale chain and kernel operands are packed here, once, for
-        ``image_size``."""
+        the scale chain and the fused kernel's operands are packed here,
+        once, for every image size: each ``predict_batch`` routes its
+        residual stages on the shape of its own batch."""
         self._qparams = qparams
-        self._packed = pack_int8(self.model.plan, qparams, self.image_size, self.compute_dtype)
+        self._packed = pack_int8(self.model.plan, qparams, self.compute_dtype)
 
     def raw_heads(self, x) -> List[torch.Tensor]:
         """Raw NHWC heads, coarsest first, in ``compute_dtype``: the int8

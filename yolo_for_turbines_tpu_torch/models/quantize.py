@@ -16,7 +16,8 @@ recipe and the same quantized tree:
   a head concats the dequantized branches ("head" mode).
 
 On CUDA the 26x26x512 residual stage runs the fused int8 kernel K4
-(``ops/kernels/resblock_int8_kernel.py``). The quantized tree is
+(``ops/kernels/resblock_int8_kernel.py``), routed on each call's own shape.
+The quantized tree is
 ``{"layers": [...], "scales": (n,) f32}`` as in JAX (``models/convert.py::
 qparams_from_numpy`` reads the JAX package's); ``pack_int8`` turns it once
 into the per-layer operands ``apply_inference_int8`` consumes, so a serving
@@ -36,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels.resblock_int8_kernel import (
+    KERNEL_C,
     apply_residual_stage_int8_fused,
-    int8_stage_wins,
     int_mm,
     kmajor_weights,
     pack_int8_stage,
@@ -277,28 +278,28 @@ def pack_int8_blocks(blocks_q, s_in, s1_list, s2_list, use_residual: bool) -> li
     return out
 
 
-def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> list:
+def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
     """Walk the plan once over ``qparams`` and fold the calibrated scale
     chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
     tensors for the layer path (weights as views of ``qparams``' where no
     padding is needed), K4's stacked operands and its K-major weight copies
-    for each residual stage the router sends to K4 at ``image_size`` (None
-    elsewhere), head weights in
-    ``compute_dtype``. The f32 arithmetic is the JAX function's; everything
-    stays on the qparams' device."""
+    for every ``use_residual`` stage whose channel count the kernel takes
+    (C = 512: one stage of Darknet-53; None elsewhere), head weights in
+    ``compute_dtype``. Nothing here depends on the image size: each call of
+    ``apply_inference_int8`` routes such a stage to K4 or to the layer path
+    on its own shape, as the JAX function does. The f32 arithmetic is the
+    JAX function's; everything stays on the qparams' device."""
     scales = qparams["scales"]
     si = iter(range(scales.shape[0]))
     s_x = torch.tensor(INPUT_SCALE, dtype=torch.float32, device=scales.device)
     packed = [{"s_in": s_x}]
     routes = []  # scales of the saved routes
     pending = None  # (s_a, s_b) of an upsample concat, (channels of a)
-    hw = image_size  # spatial size of the trunk at the current entry
     plan_t = tuple(plan)
     for i, (entry, p) in enumerate(zip(plan_t, qparams["layers"])):
         nxt = plan_t[i + 1] if i + 1 < len(plan_t) else None
         if isinstance(entry, PlanConv):
             pad = 1 if entry.kernel == 3 else 0
-            hw = (hw + 2 * pad - entry.kernel) // entry.stride + 1
             s_out = scales[next(si)]
             q = {"kernel": entry.kernel, "stride": entry.stride, "pad": pad, "b": p["b"],
                  "s_out": s_out}
@@ -314,13 +315,13 @@ def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> l
             # the stream interleaves (s1, s2) per block
             pairs = [(scales[next(si)], scales[next(si)]) for _ in p["blocks"]]
             s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
-            routed = entry.use_residual and int8_stage_wins(hw, hw, entry.channels)
-            stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if routed else None
+            fusable = entry.use_residual and entry.channels == KERNEL_C
+            stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if fusable else None
             q = {"blocks": pack_int8_blocks(p["blocks"], s_x, s1_list, s2_list,
                                             entry.use_residual),
                  "stage": stage,
                  # the K-major weights K4 reads, made here once per model
-                 "stage_kmajor": kmajor_weights(stage[0], stage[4]) if routed else None}
+                 "stage_kmajor": kmajor_weights(stage[0], stage[4]) if fusable else None}
             s_x = s2_list[-1]
             if entry.save_route:
                 routes.append(s_x)
@@ -335,7 +336,6 @@ def pack_int8(plan, qparams, image_size: int, compute_dtype=torch.bfloat16) -> l
             if _concat_mode(nxt) == "requant":
                 raise _unsupported(entry)
             pending = ((s_x, routes.pop()), entry.in_ch)
-            hw *= 2
             q = {}
         else:
             raise _unsupported(entry)
@@ -365,13 +365,14 @@ def apply_inference_int8(
     x: (B, S, S, 3) float in [0, 1] on the qparams' device. Returns one head
     per scale, coarsest first: raw NHWC heads in ``compute_dtype`` with
     ``raw_heads``, else (B, A, S, S, 5+C) f32. ``portable=True`` skips the
-    fused-stage router. ``packed`` is ``pack_int8(plan, qparams, S,
-    compute_dtype)``, made here when not given. ``head_inputs``, when a
+    fused-stage router, which otherwise decides on this call's shapes.
+    ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``, made here
+    when not given. ``head_inputs``, when a
     list, receives per head the s8 trunk tensors it reads (two for a concat
     head), so a caller can check what the int8 trunk decided."""
     act = get_activation(activation)
     if packed is None:
-        packed = pack_int8(plan, qparams, x.shape[1], compute_dtype)
+        packed = pack_int8(plan, qparams, compute_dtype)
 
     with torch.inference_mode():
         xq = _requant(torch.as_tensor(x).float(), packed[0]["s_in"])

@@ -21,7 +21,13 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
-from ..ops.kernels.resblock_kernel import apply_residual_stage_fused, stack_block_params
+from ..ops.kernels.resblock_kernel import (
+    KERNEL_C,
+    fused_residual_stage,
+    kmajor_weights,
+    stack_block_params,
+    stage_wins,
+)
 from .blocks import conv2d, get_activation, upsample2x
 
 _LATER = "is not ported yet (the other model families come in a later slice of the port)"
@@ -230,11 +236,22 @@ class ResidualStage(nn.Module):
             for _ in range(entry.num_blocks)
         )
         self._stacked = None
+        self._kmajor = None
+
+    def _drop_kernel_copies(self):
+        self._stacked = None
+        self._kmajor = None
 
     def _apply(self, fn, *args, **kwargs):
-        # .to() / .cuda() / .half() replace the weights: drop the kernel copy
-        self._stacked = None
+        # .to() / .cuda() / .half() replace the weights
+        self._drop_kernel_copies()
         return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        # load_state_dict() overwrites the weights in place (an in-place
+        # write to a block's weight by other means is not seen)
+        self._drop_kernel_copies()
+        return super()._load_from_state_dict(*args, **kwargs)
 
     def stacked(self):
         """The blocks' weights in the fused kernel's layout (cached)."""
@@ -245,14 +262,27 @@ class ResidualStage(nn.Module):
             ])
         return self._stacked
 
+    def kmajor(self):
+        """The K-major copies of the stacked weights that the CUDA kernel
+        reads (``kmajor_weights``, cached), for a stage whose channel count
+        and dtype the kernel takes (C = 512, bf16); None otherwise.
+        ``forward`` asks for them only when a call on CUDA is routed to the
+        kernel."""
+        if self._kmajor is None and self.entry.channels == KERNEL_C:
+            w1s, _, w2s, _ = self.stacked()
+            if w1s.dtype == torch.bfloat16:
+                self._kmajor = kmajor_weights(w1s, w2s)
+        return self._kmajor
+
     def forward(self, x, act, activation: str, fuse: bool):
-        if fuse and self.entry.use_residual:
+        _, c, h, w = x.shape
+        if fuse and self.entry.use_residual and stage_wins(h, w, c, x.dtype, x.device.type):
             # NCHW channels_last storage is NHWC: permute + contiguous is free
-            fused = apply_residual_stage_fused(
-                self.stacked(), x.permute(0, 2, 3, 1).contiguous(), activation
+            fused = fused_residual_stage(
+                x.permute(0, 2, 3, 1).contiguous(), *self.stacked(), activation=activation,
+                kmajor=self.kmajor() if x.is_cuda else None,
             )
-            if fused is not None:
-                return fused.permute(0, 3, 1, 2)
+            return fused.permute(0, 3, 1, 2)
         for blk in self.blocks:
             y = blk["conv1"](x, act)
             y = blk["conv2"](y, act)

@@ -45,14 +45,14 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # boxes, cls, valid, thr, batch, k, keep, stream
-    "greedy_nms_launch": ([_P, _P, _P, ctypes.c_float, _I, _I, _P, _P], _I),
+    # cand, valid, thr, batch, k, center, bits, keep, stream
+    "greedy_nms_launch": ([_P, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P], _I),
     # x, w1, b1, w2, b2, out, batch, H, W, C, act, stream
     "resblock_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
     # x, w1, d1, b1, vm1, w2, d2, b2, vout, rres, out, batch, H, W, C, act, stream
     "resblock_int8_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
-    # boxes, k, out, stream
-    "pairwise_iou_launch": ([_P, _I, _P, _P], _I),
+    # boxes, k, center, out, stream
+    "pairwise_iou_launch": ([_P, _I, _I, _P, _P], _I),
 }
 
 
@@ -155,6 +155,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The current CUDA stream of ``device`` as the integer a launch takes
+    (without building a ``torch.cuda.Stream`` object per launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -7,10 +7,11 @@ boxes -> (K, K) f32 IoU, ``inter / (union + 1e-6)``, with box_format
 serving path calls it (greedy NMS computes its IoUs inline); it stands
 beside ``ops/iou.py`` as an op of its own.
 
-``pairwise_iou`` converts center boxes to top-left in torch, so the kernel
-and the plain version see the same floats, then dispatches on the tensor's
-device: a CPU tensor takes ``pairwise_iou_reference``; a CUDA tensor
-launches the kernel or raises.
+``pairwise_iou`` dispatches on the tensor's device: a CPU tensor takes
+``pairwise_iou_reference`` (after ``_top_left``); a CUDA tensor launches the
+kernel, which converts center boxes itself with ``_top_left``'s floats, or
+raises. The kernel writes 16-byte stores when K % 4 == 0 and scalar stores
+otherwise (``vector_stores``; the C launcher decides from K alone).
 """
 
 from __future__ import annotations
@@ -39,24 +40,32 @@ def pairwise_iou_reference(tl: torch.Tensor) -> torch.Tensor:
     return inter / (union + 1e-6)
 
 
+def vector_stores(k: int) -> bool:
+    """Whether the kernel writes a (K, K) matrix with 16-byte stores: its
+    rows are 16-byte aligned only when K % 4 == 0 (``csrc/iou.cu``'s
+    launcher tests the same)."""
+    return k % 4 == 0
+
+
 def pairwise_iou(boxes4: torch.Tensor, box_format: str = "center") -> torch.Tensor:
     """(K, 4) boxes -> (K, K) f32 IoU matrix."""
     global launches
     if boxes4.dim() != 2 or boxes4.shape[-1] != 4:
         raise ValueError(f"pairwise_iou: boxes must be (K, 4), got {tuple(boxes4.shape)}")
-    tl = _top_left(boxes4.float(), box_format).contiguous()
-    if tl.device.type == "cpu":
-        return pairwise_iou_reference(tl)
-    if tl.device.type != "cuda":
-        raise ValueError(f"pairwise_iou: unsupported device {tl.device}")
-    k = tl.shape[0]
-    out = torch.empty((k, k), dtype=torch.float32, device=tl.device)
+    boxes = boxes4.float().contiguous()
+    if boxes.device.type == "cpu":
+        return pairwise_iou_reference(_top_left(boxes, box_format))
+    if boxes.device.type != "cuda":
+        raise ValueError(f"pairwise_iou: unsupported device {boxes.device}")
+    k = boxes.shape[0]
+    out = torch.empty((k, k), dtype=torch.float32, device=boxes.device)
     if k == 0:
         return out
-    if tl.data_ptr() % 16:
-        raise ValueError("pairwise_iou: boxes must be 16-byte aligned")
+    if boxes.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("pairwise_iou: boxes and output must be 16-byte aligned")
     rc = load_library().pairwise_iou_launch(
-        tl.data_ptr(), k, out.data_ptr(), stream_handle(tl.device))
+        boxes.data_ptr(), k, int(box_format == "center"), out.data_ptr(),
+        stream_handle(boxes.device))
     check(rc, "pairwise_iou_launch")
     launches += 1
     return out

@@ -6,7 +6,11 @@ the (B, K) keep mask of class-aware greedy NMS, in which a box cleared by an
 earlier kept box no longer suppresses anyone (reference: code/utils.py:150-191).
 
 ``greedy_nms`` dispatches on the tensor's device: a CPU tensor takes
-``greedy_nms_reference``; a CUDA tensor launches the kernel or raises.
+``greedy_nms_reference``; a CUDA tensor launches the kernel or raises. The
+kernel reads the candidates as they are (it converts center boxes itself,
+with ``_top_left``'s floats) and takes any K: one launch up to
+``FUSED_MAX_K`` candidates, with the suppression bits in shared memory, and
+two launches beyond, with the bits in a scratch tensor allocated here.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from . import check, load_library, stream_handle
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
 
-MAX_K = 1024  # one thread per candidate in a single CTA
+FUSED_MAX_K = 1024  # csrc/nms.cu's kFusedMaxK: K x K/32 bit words fit shared memory
 
 
 def _top_left(boxes4: torch.Tensor, box_format: str) -> torch.Tensor:
@@ -73,21 +77,28 @@ def greedy_nms(cand, valid, iou_threshold: float,
     b, k = cand.shape[0], cand.shape[1]
     if tuple(valid.shape) != (b, k) or valid.device != cand.device:
         raise ValueError("greedy_nms: valid must be a (B, K) tensor on cand's device")
-    if k > MAX_K:
-        raise ValueError(f"greedy_nms: K={k} exceeds the kernel's limit of {MAX_K}")
     out = torch.empty((b, k), dtype=torch.bool, device=cand.device)
     if b == 0 or k == 0:
         return out
-    boxes = _top_left(cand[..., :4].float(), box_format).contiguous()
-    cls = cand[..., 5].float().contiguous()
-    valid_b = valid.to(torch.bool).contiguous()
-    if boxes.data_ptr() % 16:
-        raise ValueError("greedy_nms: boxes must be 16-byte aligned")
-    lib = load_library()
-    rc = lib.greedy_nms_launch(
-        boxes.data_ptr(), cls.data_ptr(), valid_b.data_ptr(),
-        float(iou_threshold), b, k, out.data_ptr(), stream_handle(cand.device),
+    # the serving path hands over f32 and bool, contiguous: nothing runs
+    # before the launch, and the host does as little as it can
+    cand_f = cand if cand.dtype == torch.float32 and cand.is_contiguous() \
+        else cand.float().contiguous()
+    valid_b = valid if valid.dtype == torch.bool and valid.is_contiguous() \
+        else valid.to(torch.bool).contiguous()
+    if cand_f.data_ptr() % 8:
+        raise ValueError("greedy_nms: cand must be 8-byte aligned")
+    fused = k <= FUSED_MAX_K
+    bits = None
+    if not fused:
+        if b > 65535:
+            raise ValueError(f"greedy_nms: K={k} > {FUSED_MAX_K} takes at most 65535 images")
+        bits = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32, device=cand.device)
+    rc = load_library().greedy_nms_launch(
+        cand_f.data_ptr(), valid_b.data_ptr(), float(iou_threshold), b, k,
+        int(box_format == "center"), None if fused else bits.data_ptr(), out.data_ptr(),
+        stream_handle(cand.device),
     )
     check(rc, "greedy_nms_launch")
-    launches += 1
+    launches += 1 if fused else 2
     return out

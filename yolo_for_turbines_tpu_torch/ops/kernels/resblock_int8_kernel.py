@@ -20,7 +20,7 @@ kernel once per block or raises. The kernel (s8 wgmma + TMA, ``sm_90a``) runs
 one block per launch over tiles of 128 positions x 256 output channels and
 takes C = 512 and W <= 32 (``kernel_takes``); it reads the weights K-major
 (``kmajor_weights``), which ``models/quantize.py::pack_int8`` makes once per
-model for the stages it routes here.
+model for every stage whose channel count the kernel takes.
 
 Also here: ``int_mm``, the exact s8 x s8 -> i32 matrix product
 (``torch._int_mm``) that the plain version and the model's unfused int8
@@ -40,8 +40,9 @@ from .resblock_kernel import (
     _ACTIVATIONS,
     KERNEL_C,
     KERNEL_MAX_W,
+    geometry_wins,
     kernel_takes,
-    stage_wins,
+    kmajor_weights,
 )
 
 # kernel launches since the last reset (read by chip_smoke.py)
@@ -124,16 +125,6 @@ def smem_plan(w: int) -> dict:
         "res_bytes": th * w * 128, "res_stride": round_up(th * w * 128, 1024),
         "bar_off": bar_off, "smem_bytes": 1024 + bar_off + tail,
     }
-
-
-def kmajor_weights(w1q: torch.Tensor, w2q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The layout the kernel reads: W1 as (n, C/2, C) and W2 as (n, C, 9*C/2),
-    row ``o`` holding output channel ``o``'s weights (W2's K index is
-    tap * C/2 + input channel), from ``pack_int8_stage``'s (n, C, C/2) and
-    (n, 9, C/2, C)."""
-    n, c, ch = w1q.shape
-    return (w1q.transpose(1, 2).contiguous(),
-            w2q.reshape(n, 9 * ch, c).transpose(1, 2).contiguous())
 
 
 def _check_cuda_args(xq, ops, activation, kmajor=None):
@@ -249,23 +240,16 @@ def pack_int8_stage(blocks_q: Sequence[dict], s_in, s1_list, s2_list):
     )
 
 
-def int8_stage_wins(h: int, w: int, c: int) -> bool:
-    """Geometry class the fused int8 stage is routed to, the bf16 router's
-    (``resblock_kernel.stage_wins``): c = 512 and 16^2 <= h*w <= 32^2, the
-    26x26x512 stage of Darknet-53 at 416px and its 20x20 to 32x32 sizes at
-    320-512px, at every batch size. The c = 1024 stage (16x16 to 19x19 at
-    512-608px) stays on the int8 layer path: the kernel does not take it.
-    The JAX router's batch gate and measured-winner table were TPU
-    measurements and are not applied."""
-    return stage_wins(h, w, c)
-
-
 def apply_residual_stage_int8_fused(ops, xq, activation: str,
                                     kmajor=None) -> Optional[torch.Tensor]:
     """Router for a quantized use_residual stage: ``ops`` from
     ``pack_int8_stage`` (``kmajor`` from ``kmajor_weights``), xq NHWC s8;
-    returns None when the geometry stays on the layer-by-layer int8 path."""
+    returns None when the geometry of this call stays on the layer-by-layer
+    int8 path. The geometry class is the bf16 router's
+    (``resblock_kernel.geometry_wins``), at every batch size: the JAX
+    router's batch gate and measured-winner table were TPU measurements and
+    are not applied."""
     _, h, w, c = xq.shape
-    if not int8_stage_wins(h, w, c):
+    if not geometry_wins(h, w, c):
         return None
     return fused_residual_stage_int8(xq, *ops, activation=activation, kmajor=kmajor)

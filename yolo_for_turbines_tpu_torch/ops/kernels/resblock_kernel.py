@@ -1,5 +1,5 @@
 """Fused folded residual blocks (kernel K2, ``csrc/resblock.cu``), its plain
-torch version, and the router the model calls.
+torch version, and the routing predicate the model asks.
 
 Counterpart of ``yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py``. A
 Darknet-53 residual block at inference is
@@ -10,8 +10,12 @@ with f32 accumulation, ``mid`` rounded to the activation dtype, and the
 residual added in the activation dtype. The Pallas kernel runs a chunk of
 blocks per launch with the image resident in VMEM; the CUDA kernel (wgmma +
 TMA, ``sm_90a``) runs one block per launch over tiles of 128 positions x 256
-output channels (see the note at the top of the source). It takes C = 512
-and W <= 32 (``kernel_takes``); the router sends it nothing else.
+output channels (see the note at the top of the source). It takes C = 512,
+W <= 32 (``kernel_takes``) and bf16; the model sends it nothing else, and a
+CUDA stage of another dtype stays on the layer path (``stage_wins``). The
+kernel reads the weights K-major (``kmajor_weights``), which
+``models/yolov3.py::ResidualStage`` makes once, at its first routed call on
+CUDA.
 
 Layouts follow the JAX package: x is NHWC, w1s is (n, C, C/2) or
 (n, 1, 1, C, C/2), w2s is (n, 3, 3, C/2, C) HWIO, biases are (n, C/2) and
@@ -64,7 +68,17 @@ def fused_residual_stage_reference(x, w1s, b1s, w2s, b2s, *,
     return x
 
 
-def _check_cuda_args(x, w1s, b1s, w2s, b2s, activation):
+def kmajor_weights(w1s: torch.Tensor, w2s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layout the CUDA kernels read through TMA: W1 as (n, C/2, C) and W2
+    as (n, C, 9*C/2), row ``o`` holding output channel ``o``'s weights (W2's
+    K index is tap * C/2 + input channel), from W1 as (n, C, C/2) or
+    (n, 1, 1, C, C/2) and W2 as (n, 3, 3, C/2, C) or (n, 9, C/2, C)."""
+    n, (c, ch) = w1s.shape[0], w1s.shape[-2:]
+    return (w1s.reshape(n, c, ch).transpose(1, 2).contiguous(),
+            w2s.reshape(n, 9 * ch, c).transpose(1, 2).contiguous())
+
+
+def _check_cuda_args(x, w1s, b1s, w2s, b2s, activation, kmajor=None):
     if activation not in _ACT_CODES:
         raise ValueError(f"fused_residual_stage: unsupported activation {activation!r}")
     if x.dim() != 4:
@@ -78,6 +92,9 @@ def _check_cuda_args(x, w1s, b1s, w2s, b2s, activation):
         "b2s": (b2s, (n, c), torch.float32),
         "x": (x, (b, h, w, c), torch.bfloat16),
     }
+    if kmajor is not None:
+        expected["w1 (K-major)"] = (kmajor[0], (n, ch, c), torch.bfloat16)
+        expected["w2 (K-major)"] = (kmajor[1], (n, c, 9 * ch), torch.bfloat16)
     for name, (t, shape, dtype) in expected.items():
         got = tuple(t.shape)
         if name == "w1s" and got == (n, 1, 1, c, ch):
@@ -104,7 +121,8 @@ def kernel_takes(h: int, w: int, c: int) -> bool:
 
 
 def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
-                         activation: str = "leaky_relu"):
+                         activation: str = "leaky_relu",
+                         kmajor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Run a stack of folded residual blocks.
 
     Args:
@@ -113,6 +131,8 @@ def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
         b1s: (n, C/2) folded 1x1 biases (f32 on CUDA).
         w2s: (n, 3, 3, C/2, C) folded 3x3 weights, HWIO (bf16 on CUDA).
         b2s: (n, C) folded 3x3 biases (f32 on CUDA).
+        kmajor: ``kmajor_weights(w1s, w2s)``, which the CUDA kernel reads;
+            made here when not given (a model makes them once).
 
     Returns (B, H, W, C) in a new tensor; ``x`` is left unchanged.
     """
@@ -123,27 +143,29 @@ def fused_residual_stage(x, w1s, b1s, w2s, b2s, *,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_stage: unsupported device {x.device}")
-    _check_cuda_args(x, w1s, b1s, w2s, b2s, activation)
+    _check_cuda_args(x, w1s, b1s, w2s, b2s, activation, kmajor)
     b, h, w, c = x.shape
-    n, ch = w2s.shape[0], c // 2
+    n = w2s.shape[0]
     if b == 0 or n == 0:
         return x.clone()
     lib = load_library()
     stream = stream_handle(x.device)
-    # TMA reads the weights K-major: row n of W1 (C/2, C) and of W2
-    # (C, 9 C/2) holds output channel n's weights
-    w1t = w1s.reshape(n, c, ch).transpose(1, 2).contiguous()
-    w2t = w2s.reshape(n, 9 * ch, c).transpose(1, 2).contiguous()
+    w1t, w2t = kmajor if kmajor is not None else kmajor_weights(w1s, w2s)
     # Neighbouring CTAs read each other's halo rows, so a block never
     # writes its input: x, then two buffers in turn.
     bufs = [torch.empty_like(x) for _ in range(min(n, 2))]
+    # block i's operands by address: slicing four tensors per launch costs
+    # the host more than a small batch costs the card
+    operands = (w1t, b1s, w2t, b2s)
+    bases = [t.data_ptr() for t in operands]
+    steps = [t.stride(0) * t.element_size() for t in operands]
+    act = _ACT_CODES[activation]
     src = x
     for i in range(n):
         dst = bufs[i % 2]
         rc = lib.resblock_launch(
-            src.data_ptr(), w1t[i].data_ptr(), b1s[i].data_ptr(),
-            w2t[i].data_ptr(), b2s[i].data_ptr(), dst.data_ptr(),
-            b, h, w, c, _ACT_CODES[activation], stream,
+            src.data_ptr(), *(base + i * step for base, step in zip(bases, steps)),
+            dst.data_ptr(), b, h, w, c, act, stream,
         )
         check(rc, "resblock_launch")
         launches += 1
@@ -162,21 +184,26 @@ def stack_block_params(blocks: Sequence[Dict]) -> Tuple[torch.Tensor, ...]:
     return w1s.contiguous(), b1s, w2s.contiguous(), b2s
 
 
-def stage_wins(h: int, w: int, c: int) -> bool:
-    """Geometry class the fused stage is routed to: c = 512 and
-    16^2 <= h*w <= 32^2, i.e. the 26x26x512 stage of Darknet-53 at 416px
-    (and its 20x20 to 32x32 sizes at 320-512px). Like the JAX router's
-    chunk test, which keeps 13x13x1024 off its kernel, the c = 1024 stage
-    (16x16 to 19x19 at 512-608px) stays on the layer path: the kernel does
-    not take it. The JAX router's batch gate was a TPU measurement and is
-    not applied."""
+def geometry_wins(h: int, w: int, c: int) -> bool:
+    """Geometry class the fused stages (this one and the int8 one) are
+    routed to: c = 512 and 16^2 <= h*w <= 32^2, i.e. the 26x26x512 stage of
+    Darknet-53 at 416px (and its 20x20 to 32x32 sizes at 320-512px). Like
+    the JAX router's chunk test, which keeps 13x13x1024 off its kernel, the
+    c = 1024 stage (16x16 to 19x19 at 512-608px) stays on the layer path:
+    the kernels do not take it. The JAX router's batch gate was a TPU
+    measurement and is not applied."""
     return 16 * 16 <= h * w <= 32 * 32 and kernel_takes(h, w, c)
 
 
-def apply_residual_stage_fused(stacked, x, activation: str) -> Optional[torch.Tensor]:
-    """Router for a residual stage: x NHWC; returns None when the geometry
-    stays on the layer-by-layer path."""
-    _, h, w, c = x.shape
-    if not stage_wins(h, w, c):
-        return None
-    return fused_residual_stage(x, *stacked, activation=activation)
+def stage_wins(h: int, w: int, c: int, dtype: torch.dtype, device_type: str) -> bool:
+    """Whether a residual stage of this geometry, dtype and device type is
+    routed to ``fused_residual_stage``: the geometry class of
+    ``geometry_wins`` and, on CUDA, bf16. The CUDA kernel is bf16 only
+    (where the JAX kernel casts its weights to ``x.dtype`` and runs), so a
+    float32 or float16 stage on CUDA is routed to the layer path (cuDNN)
+    by this stated property of its input; a direct call of
+    ``fused_residual_stage`` with such a tensor still raises. On the CPU
+    the plain version takes every dtype. ``ResidualStage.forward`` asks
+    this for each call's own shape; a stage that loses stays on the
+    layer-by-layer path."""
+    return geometry_wins(h, w, c) and (device_type != "cuda" or dtype == torch.bfloat16)

@@ -7,8 +7,9 @@
    threshold is cleared by a kept box, and a cleared box no longer
    suppresses (``ops/kernels/nms_kernel.py``).
 
-CUDA tensors run step 2 in the fused kernel at every batch size; CPU tensors
-take its plain torch version.
+CUDA tensors run step 2 in the fused kernel at every batch size and every
+K (``max_boxes`` may be the number of candidates, as a reference-style
+``non_max_suppression`` asks); CPU tensors take its plain torch version.
 """
 
 from __future__ import annotations
