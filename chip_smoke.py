@@ -48,7 +48,26 @@ Phases, one JSON line each:
           port's int8 CPU forward of the same qparams the s8 trunk codes
           each head reads must agree and the raw heads must agree (cosine);
           a predictor built for 608px, quantized the same way and fed the
-          416px batch must launch K4 too and give the same trunk codes.
+          416px batch must launch K4 too and give the same trunk codes;
+  eval    the trainable 80-class Darknet-53 at 416px (seeded init, seeded BN
+          scale and bias, running statistics from a train-mode pass over
+          seeded noise, then jittered; objectness rows scaled so that scores
+          spread around 0.5), 32 seeded noise images with 1 to 8 random
+          boxes each, encoded by assign_targets: the fused eval step in
+          float32 at B = 2, with TF32 turned on around it so that the step's
+          own switch must turn it off, against the port's f32 CPU step (loss
+          terms, accuracy counts, survivors; the TF32 heads' distance from
+          the f32 heads is printed beside); the step in bf16 autocast at
+          B = 8 (heads against the f32 card heads, loss terms finite); K1
+          must launch at least once per eval step; device mAP equal to host
+          calc_map over the 32 images (the survivors, and the survivors with
+          jittered copies of the ground truth); the ground-truth replay
+          exactly 1.0; fold() served by Predictor.from_folded: K2 8 and K1 1
+          launches per bf16 predict_batch at B = 8, float32 folded heads
+          against the trainable module's; eval-step images/s at B = 8 and
+          32, evaluate_map_device's wall time over the 32 images,
+          calc_map_device_batched at I = 1000, K = 256, G = 128, C = 80, and
+          host calc_map over the 32 images.
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -59,6 +78,7 @@ figures), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -115,6 +135,34 @@ K4_MISH_MAX_FRAC = 0.01
 # f32 on the CPU: cosine per raw head.
 INT8_TRUNK_MAX_FRAC = 1e-3
 INT8_HEAD_COS = 0.999
+# eval phase. The trainable model's BN statistics are calibrated so that
+# every layer carries signal (random statistics would leave each head a
+# constant plus noise, where rounding decides scores and counts). Rounding
+# then accumulates through the ~75 normalized layers.
+EVAL_IMAGES = 32
+# Loss terms of the f32 card step (TF32 off) against the f32 CPU step,
+# relative per term: 8.1e-6 at most, in obj_loss, which averages over only
+# 48 object cells (an H100).
+EVAL_LOSS_RTOL = 1e-5
+# f32 heads, relative RMS per head: the port and the JAX package differ by up
+# to 1.3e-5 in the mini model's eval heads on the CPU
+# (tests/test_torch_trainable.py), and the folded f32 heads on the card by
+# 1.5e-5 to 3.1e-5 from the trainable module's (an H100).
+EVAL_HEAD_RTOL = 1e-4
+# bf16 heads against the f32 heads, relative RMS per head: 0.10-0.17
+# (autocast) and 0.11-0.20 (folded) in the mini model on the CPU, against
+# about 1.4 for unrelated heads (the serving gate HEAD_RTOL holds only for
+# heads that are mostly bias).
+EVAL_BF16_HEAD_RTOL = 0.3
+# Survivor boxes of the f32 card step against the CPU step: decoded from
+# heads held at EVAL_HEAD_RTOL, so |card - cpu| <= 1e-4 |cpu| + 1e-5.
+EVAL_BOX_RTOL, EVAL_BOX_ATOL = 1e-4, 1e-5
+EVAL_MAP_TOL = 1e-5
+# Objectness logits have mean OBJECTNESS_MEAN and standard deviation
+# OBJECTNESS_STD on the calibration images: a few dozen candidates per
+# image pass the 0.5 threshold, and few logits lie where the card's and
+# the CPU's rounding could flip a count.
+OBJECTNESS_MEAN, OBJECTNESS_STD = -4.0, 1.5
 
 
 def emit(obj) -> None:
@@ -769,6 +817,281 @@ def phase_main_int8(dev, bf16_rates):
     return launches, out["pairwise_iou_launches"]
 
 
+def eval_model(dev, model_cfg, size: int):
+    """The trainable full-width model on the card, f32: seeded init; BN
+    scale U(0.5, 1.5) and bias N(0, 0.2); running statistics from one
+    train-mode pass over 8 seeded noise images (momentum None: the average
+    of one batch is that batch), then mean + N(0, 0.1) * std and
+    var * U(0.7, 1.4); each anchor's objectness row of each head's last 1x1
+    scaled and shifted so that its eval-mode logits on those images have
+    mean OBJECTNESS_MEAN and standard deviation OBJECTNESS_STD.
+
+    The same recipe, drawn from numpy and with mean 0, makes the CPU tests'
+    weights in ``tests/torch_eval_weights.py::eval_weights``: keep the two
+    in step (this file imports nothing of the tests, whose helpers import
+    the JAX package)."""
+    import torch.nn as nn
+
+    from yolo_for_turbines_tpu_torch.models.yolov3 import TrainableHead, YOLOv3
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    model = YOLOv3(model_cfg, generator=gen)
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.weight.copy_(torch.rand(bn.num_features, generator=gen) + 0.5)
+            bn.bias.copy_(0.2 * torch.randn(bn.num_features, generator=gen))
+            bn.reset_running_stats()
+            bn.momentum = None
+        model = model.to(dev, memory_format=torch.channels_last)
+        x = torch.rand(8, size, size, 3, generator=gen).to(dev)
+        model.train()(x)
+        for bn in bns:
+            bn.momentum = 0.1
+            std = bn.running_var.sqrt()
+            bn.running_mean.add_(0.1 * torch.randn(bn.num_features, generator=gen).to(dev) * std)
+            bn.running_var.mul_((0.7 + 0.7 * torch.rand(bn.num_features, generator=gen)).to(dev))
+        heads = model.eval()(x)
+        c5 = model_cfg.num_classes + 5
+        for head, y in zip((m for m in model.layers if isinstance(m, TrainableHead)), heads):
+            conv = head.conv2.conv
+            for a in range(y.shape[1]):
+                row = a * c5 + 4
+                free = y[:, a, ..., 4] - conv.bias[row]
+                gain = OBJECTNESS_STD / free.std()
+                conv.weight[row] *= gain
+                conv.bias[row] = OBJECTNESS_MEAN - gain * free.mean()
+    return model
+
+
+def eval_batches(dev, classes: int, size: int):
+    """EVAL_IMAGES seeded noise images with 1 to 8 random boxes each,
+    encoded by assign_targets; batches of 8 on the card."""
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.data.dataset import assign_targets
+
+    rng = np.random.default_rng(SEED + 4)
+    anchors = cfg.anchors_array(cfg.ANCHORS).reshape(-1, 2)
+    images = rng.uniform(size=(EVAL_IMAGES, size, size, 3)).astype(np.float32)
+    per_image = []
+    for _ in range(EVAL_IMAGES):
+        boxes = [[*rng.uniform(0.05, 0.95, 2), *rng.uniform(0.03, 0.6, 2),
+                  int(rng.integers(classes))] for _ in range(int(rng.integers(1, 9)))]
+        per_image.append(assign_targets(boxes, anchors, cfg.grid_sizes_for(size)))
+    targets = [np.stack([t[i] for t in per_image]) for i in range(3)]
+    x = torch.from_numpy(images).to(dev)
+    t = [torch.from_numpy(a).to(dev) for a in targets]
+    return x, t
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def sorted_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Rows by descending score (column 4)."""
+    return rows[torch.argsort(-rows[:, 4], stable=True)]
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for cuDNN convs and cuBLAS matmuls, restored afterwards: a
+    float32 path must turn it off itself."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_eval(dev):
+    """The eval path of the 80-class Darknet-53 at 416px."""
+    import copy
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.blocks import full_f32
+    from yolo_for_turbines_tpu_torch.ops import map as map_ops
+    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+    from yolo_for_turbines_tpu_torch.train import evaluate as ev
+
+    model_cfg, size = cfg.ModelConfig(), 416
+    out = {"phase": "eval", "model": f"{model_cfg.backbone} yolov3, {model_cfg.num_classes} "
+           f"classes, {size}px, trainable (conv + BN)", "images": EVAL_IMAGES, "loss_rtol": EVAL_LOSS_RTOL,
+           "head_rtol": EVAL_HEAD_RTOL, "bf16_head_rtol": EVAL_BF16_HEAD_RTOL,
+           "box_rtol": EVAL_BOX_RTOL, "box_atol": EVAL_BOX_ATOL}
+    t0 = time.perf_counter()
+    model = eval_model(dev, model_cfg, size)
+    classes = model_cfg.num_classes
+    x, targets = eval_batches(dev, classes, size)
+    loader = [(x[i:i + 8], [t[i:i + 8] for t in targets]) for i in range(0, EVAL_IMAGES, 8)]
+    out["setup_s"] = time.perf_counter() - t0
+
+    # float32 on the card against the port's f32 CPU step, B=2. TF32 is on
+    # around the card's f32 forwards (main() turns it off for the process),
+    # so the gates hold the eval path's own switch (models/blocks.py::full_f32)
+    x2, t2 = x[:2], [t[:2] for t in targets]
+    with tf32_on():
+        card = ev.make_fused_eval_step(model, compute_dtype=torch.float32)(x2, t2, cfg.ANCHORS)
+        with torch.no_grad():
+            with full_f32():
+                heads_f32 = model.eval()(x[:8])
+            # what the switch guards against: the same heads in TF32
+            heads_tf32 = model(x[:8])
+    cpu_model = copy.deepcopy(model).to("cpu", memory_format=torch.contiguous_format)
+    t0 = time.perf_counter()
+    host = ev.make_fused_eval_step(cpu_model, compute_dtype=torch.float32)(
+        x2.cpu(), [t.cpu() for t in t2], cfg.ANCHORS)
+    out["cpu_step_B2_s"] = time.perf_counter() - t0
+    (m_d, c_d, kept_d, mask_d, _), (m_h, c_h, kept_h, mask_h, _) = card, host
+    out["loss_terms_card"] = {k: float(v) for k, v in m_d.items()}
+    out["loss_rel_err"] = {k: abs(float(m_d[k]) - float(m_h[k])) / abs(float(m_h[k])) for k in m_h}
+    out["counts_card"], out["counts_cpu"] = c_d.tolist(), c_h.tolist()
+    box_err, survivors = 0.0, []
+    masks_equal = bool(torch.equal(mask_d.cpu().sum(1), mask_h.sum(1)))
+    for b in range(2):
+        got, want = sorted_rows(kept_d[b][mask_d[b]].cpu()), sorted_rows(kept_h[b][mask_h[b]])
+        survivors.append(len(want))
+        if got.shape != want.shape:
+            masks_equal = False
+            continue
+        excess = (got - want).abs() - EVAL_BOX_RTOL * want.abs()
+        box_err = max(box_err, float(excess.max()))
+    out["survivors_B2"], out["survivor_counts_equal"] = survivors, masks_equal
+    out["survivor_max_excess_over_rtol"] = box_err
+    out["tf32_head_rel_rms"] = [rel_rms(h, w) for h, w in zip(heads_tf32, heads_f32)]
+    with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16):
+        heads_bf16 = model(x[:8])
+    out["bf16_head_rel_rms"] = [rel_rms(h, w) for h, w in zip(heads_bf16, heads_f32)]
+    del cpu_model, host
+
+    # the eval path: the fused step over the 32 images in bf16 autocast
+    # (B = 8), then evaluate_map_device over the same batches
+    step = ev.make_fused_eval_step(model)
+    nms_kernel.launches = 0
+    resblock_kernel.launches = 0
+    iou_kernel.launches = 0
+    results = [step(*batch, cfg.ANCHORS) for batch in loader]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_map = ev.evaluate_map_device(loader, model, cfg.ANCHORS, classes)
+    out["evaluate_map_device_s"] = time.perf_counter() - t0
+    launches = {"greedy_nms": nms_kernel.launches,
+                "fused_residual_stage": resblock_kernel.launches,
+                "pairwise_iou": iou_kernel.launches}
+    out["launches"], out["eval_steps"] = launches, 2 * len(loader)
+    out["evaluate_map_device"] = dev_map
+    out["bf16_loss_terms_B8"] = [{k: float(v) for k, v in r[0].items()} for r in results]
+
+    # device mAP against host calc_map on the same rows, all 32 images
+    kept = torch.cat([r[2] for r in results])
+    mask = torch.cat([r[3] for r in results])
+    true = torch.cat([r[4] for r in results])
+    true_ok = true[..., 4] > cfg.CONF_THRESHOLD
+    p_rows, t_rows, _ = ev.rows_from_eval_step(kept, mask, true, 0, cfg.CONF_THRESHOLD)
+    t0 = time.perf_counter()
+    host_map = map_ops.calc_map(p_rows, t_rows, num_classes=classes)
+    out["host_calc_map_s"] = time.perf_counter() - t0
+    dev_map_rows = float(map_ops.calc_map_device_batched(kept, mask, true, true_ok,
+                                                         num_classes=classes))
+    # the same with jittered copies of the ground truth among the survivors,
+    # so that matches happen and the AP is neither 0 nor 1
+    gen = torch.Generator().manual_seed(SEED + 5)
+    g = true.shape[1]
+    jitter = true.clone()
+    jitter[..., :4] += 0.02 * (torch.rand(jitter[..., :4].shape, generator=gen).to(dev) - 0.5)
+    jitter[..., 4] = torch.rand(jitter[..., 4].shape, generator=gen).to(dev)
+    mixed = torch.cat([kept[:, : kept.shape[1] - g], jitter], dim=1)
+    mixed_ok = torch.cat([mask[:, : kept.shape[1] - g], true_ok], dim=1)
+    mp_rows, _, _ = ev.rows_from_eval_step(mixed, mixed_ok, true, 0, cfg.CONF_THRESHOLD)
+    mixed_host = map_ops.calc_map(mp_rows, t_rows, num_classes=classes)
+    mixed_dev = float(map_ops.calc_map_device_batched(mixed, mixed_ok, true, true_ok,
+                                                      num_classes=classes))
+    replay = float(map_ops.calc_map_device_batched(true, true_ok, true, true_ok,
+                                                   num_classes=classes))
+    out["map"] = {"device": dev_map_rows, "host": host_map, "mixed_device": mixed_dev,
+                  "mixed_host": mixed_host, "gt_replay": replay,
+                  "gt_boxes": int(true_ok.sum()), "survivors": int(mask.sum())}
+
+    # times: the eval step at B = 8 and 32 (bf16), device mAP at I = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for batch in loader:
+            step(*batch, cfg.ANCHORS)
+    torch.cuda.synchronize()
+    out["eval_step_B8_images_per_s"] = 2 * EVAL_IMAGES / (time.perf_counter() - t0)
+    step(x, targets, cfg.ANCHORS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(x, targets, cfg.ANCHORS)
+    torch.cuda.synchronize()
+    out["eval_step_B32_images_per_s"] = 3 * EVAL_IMAGES / (time.perf_counter() - t0)
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_img, k, g, c = 1000, K, 128, 80
+
+    def rows(n):
+        r = torch.rand(n_img, n, 6, generator=dgen, device=dev)
+        r[..., 2:4] = 0.05 + 0.3 * r[..., 2:4]
+        r[..., 5] = torch.randint(0, c, (n_img, n), generator=dgen, device=dev).float()
+        return r
+
+    preds, gts = rows(k), rows(g)
+    pv = torch.rand(n_img, k, generator=dgen, device=dev) < 0.5
+    gv = torch.rand(n_img, g, generator=dgen, device=dev) < 0.3
+    big = float(map_ops.calc_map_device_batched(preds, pv, gts, gv, num_classes=c))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        float(map_ops.calc_map_device_batched(preds, pv, gts, gv, num_classes=c))
+    out["calc_map_device_batched_I1000_K256_G128_C80_s"] = (time.perf_counter() - t0) / 2
+    out["calc_map_device_batched_I1000_value"] = big
+
+    # fold() served: bf16 with K2 and K1, and f32 heads against the module's
+    folded = model.fold()
+    pred = Predictor.from_folded(model_cfg, folded, device=dev)
+    nms_kernel.launches = 0
+    resblock_kernel.launches = 0
+    kept8, mask8 = pred.predict_batch(x[:8])
+    torch.cuda.synchronize()
+    fold_launches = {"greedy_nms": nms_kernel.launches,
+                     "fused_residual_stage": resblock_kernel.launches}
+    out["fold_launches_B8"] = fold_launches
+    pred32 = Predictor.from_folded(model_cfg, folded, device=dev, compute_dtype=torch.float32)
+    raw = pred32.raw_heads(x[:8])
+    out["fold_f32_head_rel_rms"] = [
+        rel_rms(r.reshape(h.shape[0], h.shape[2], h.shape[3], h.shape[1], h.shape[4])
+                .permute(0, 3, 1, 2, 4), h) for r, h in zip(raw, heads_f32)]
+    emit(out)
+
+    require(max(out["loss_rel_err"].values()) <= EVAL_LOSS_RTOL,
+            f"f32 card loss terms differ from the CPU step: {out['loss_rel_err']}")
+    require(out["counts_card"] == out["counts_cpu"], "f32 card accuracy counts differ from CPU")
+    require(masks_equal and box_err <= EVAL_BOX_ATOL,
+            "f32 card survivors differ from the CPU step")
+    require(max(out["bf16_head_rel_rms"]) <= EVAL_BF16_HEAD_RTOL,
+            f"bf16 eval heads off the f32 heads: {out['bf16_head_rel_rms']}")
+    require(all(np.isfinite(v) for r in out["bf16_loss_terms_B8"] for v in r.values()),
+            "bf16 eval loss terms not finite")
+    require(launches["greedy_nms"] >= out["eval_steps"] and launches["fused_residual_stage"] == 0,
+            f"eval path launches {launches}: K1 once per step, no K2")
+    require(abs(dev_map_rows - host_map) <= EVAL_MAP_TOL
+            and abs(mixed_dev - mixed_host) <= EVAL_MAP_TOL,
+            f"device mAP differs from host calc_map: {out['map']}")
+    require(0.0 < mixed_host < 1.0, f"mixed rows give a trivial mAP: {out['map']}")
+    require(replay == 1.0, f"ground-truth replay scored {replay}")
+    require(fold_launches == {"greedy_nms": 1, "fused_residual_stage": 8},
+            f"fold() served: launches {fold_launches}")
+    require(mask8.shape == (8, K) and bool(torch.isfinite(kept8).all()),
+            "fold() served: predict_batch misshapen or not finite")
+    require(max(out["fold_f32_head_rel_rms"]) <= EVAL_HEAD_RTOL,
+            f"folded f32 heads off the trainable module's: {out['fold_f32_head_rel_rms']}")
+    return launches, fold_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -796,10 +1119,12 @@ def main() -> int:
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
+    launches_eval, launches_fold = phase_eval(dev)
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
-                   "main_int8": launches_int8["greedy_nms"]}
+                   "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
+                   "eval_fold": launches_fold["greedy_nms"]}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
-                   "main_int8": iou_int8}
+                   "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"]}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -811,7 +1136,9 @@ def main() -> int:
          "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_kernel.py:100",
          "launches": launches["fused_residual_stage"],
          "launches_by_path": {"main": launches["fused_residual_stage"],
-                              "main_f32": launches_f32["fused_residual_stage"]}, **k2},
+                              "main_f32": launches_f32["fused_residual_stage"],
+                              "eval": launches_eval["fused_residual_stage"],
+                              "eval_fold": launches_fold["fused_residual_stage"]}, **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/iou.cu",

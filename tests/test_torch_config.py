@@ -22,9 +22,30 @@ def test_model_config_fields_match_jax():
 
 @pytest.mark.parametrize(
     "name", ["ANCHORS", "DEF_IMAGE_SIZE", "CONF_THRESHOLD", "NMS_IOU_THRESHOLD",
-             "STRIDES", "NUM_COCO_CLASSES"])
+             "STRIDES", "NUM_COCO_CLASSES", "MAP_IOU_THRESHOLD", "TURBINE_ANCHORS",
+             "TURBINE_LABELS", "NUM_TURBINE_CLASSES"])
 def test_constants_match_jax(name):
     assert getattr(cfg, name) == getattr(jax_cfg, name)
+
+
+def test_eval_config_matches_jax():
+    want = [(f.name, f.type, f.default) for f in dataclasses.fields(jax_cfg.EvalConfig)]
+    got = [(f.name, f.type, f.default) for f in dataclasses.fields(cfg.EvalConfig)]
+    assert got == want
+    assert dataclasses.asdict(cfg.EvalConfig(max_boxes=64)) == dataclasses.asdict(
+        jax_cfg.EvalConfig(max_boxes=64))
+
+
+@pytest.mark.parametrize("anchors", ["ANCHORS", "TURBINE_ANCHORS"])
+@pytest.mark.parametrize("size", [64, 416, 608])
+def test_anchor_arrays_match_jax(anchors, size):
+    a = getattr(cfg, anchors)
+    got = cfg.anchors_array(a)
+    assert got.dtype == np.float32 and got.shape == (3, 3, 2)
+    np.testing.assert_array_equal(got, jax_cfg.anchors_array(a))
+    np.testing.assert_array_equal(cfg.scaled_anchors_array(a, size),
+                                  jax_cfg.scaled_anchors_array(a, size))
+    np.testing.assert_array_equal(cfg.anchors_array(), jax_cfg.anchors_array())
 
 
 @pytest.mark.parametrize("size", [320, 416, 608])

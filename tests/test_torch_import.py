@@ -1,4 +1,5 @@
-"""Torch port: importing it and serving with it, folded and int8, imports
+"""Torch port: importing it, serving with it (folded and int8) and
+evaluating with it (``evaluate_map_device`` of the trainable module) imports
 neither jax nor any module of the JAX package (yolo_for_turbines_tpu).
 
 Runs in a subprocess because this test process has jax loaded already
@@ -18,13 +19,16 @@ import numpy as np
 import torch
 
 import yolo_for_turbines_tpu_torch
-from yolo_for_turbines_tpu_torch.config import ModelConfig
+from yolo_for_turbines_tpu_torch.config import ANCHORS, ModelConfig
 from yolo_for_turbines_tpu_torch import inference, serving
 from yolo_for_turbines_tpu_torch.tools import profile_serving
 from yolo_for_turbines_tpu_torch.models import quantize
 from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, resblock_int8_kernel
-from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3, build_plan, init_plan
 from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+from yolo_for_turbines_tpu_torch.data.dataset import assign_targets
+from yolo_for_turbines_tpu_torch.train.evaluate import evaluate_map_device
+from yolo_for_turbines_tpu_torch.ops import map as map_ops
 
 sys.path.insert(0, "tests")
 from helpers import MINI_LAYERS  # plain data, no jax
@@ -45,6 +49,15 @@ assert tuple(kept.shape) == (2, 8, 6) and bool(torch.isfinite(kept).all())
 assert len(pred.predict_images(images)) == 1
 iou = iou_kernel.pairwise_iou(torch.rand(5, 4))
 assert tuple(iou.shape) == (5, 5)
+# one eval of the trainable module on the CPU
+trainable = YOLOv3(cfg, generator=torch.Generator().manual_seed(0))
+grids = (2, 4, 8)
+targets = assign_targets([[0.4, 0.5, 0.3, 0.2, 1]], np.reshape(ANCHORS, (9, 2)), grids)
+targets = [np.stack([t, t]) for t in targets]
+m = evaluate_map_device([(x, targets)], trainable, ANCHORS, num_classes=2,
+                        compute_dtype=torch.float32)
+assert 0.0 <= m <= 1.0
+assert map_ops.calc_map([], [[0, 0.5, 0.5, 0.1, 0.1, 1, 0]], num_classes=2) == 0.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
 assert not bad, bad

@@ -11,7 +11,7 @@ import torch
 from yolo_for_turbines_tpu_torch.config import ModelConfig
 from yolo_for_turbines_tpu_torch.tools import profile_serving
 from yolo_for_turbines_tpu_torch.inference import Predictor
-from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3, build_plan, init_plan
 
 from helpers import MINI_LAYERS
 
@@ -35,7 +35,23 @@ def test_profile_predict_batch_on_cpu(int8):
     assert "Self CPU" in table
 
 
+def test_profile_eval_step_on_cpu():
+    cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+    model = YOLOv3(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    targets = [torch.zeros(2, cfg.anchors_per_scale, s, s, 6) for s in (2, 4, 8)]
+    summary, table = profile_serving.profile_eval_step(model, x, targets, iters=1, warmup=1)
+    assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0
+    assert "Self CPU" in table
+
+
 def test_profiling_cli_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         profile_serving.main([])
+
+
+def test_eval_profiling_cli_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        profile_serving.main(["--eval"])

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of the 416px serving path of yolo_for_turbines_tpu,
-bf16 and int8 PTQ.
+"""PyTorch + CUDA port of yolo_for_turbines_tpu: the 416px serving path
+(bf16 and int8 PTQ) and the eval path (the trainable Darknet-53 in eval
+mode, the 4-term loss, decode, host and device mAP).
 
 The JAX package beside this one is the reference; module names mirror it
 (``models/yolov3.py``, ``ops/nms.py``, ``inference.py``, ...). Its four

@@ -1,1 +1,2 @@
-"""numpy/PIL letterbox geometry (a jax-free copy of the JAX package's)."""
+"""numpy/PIL letterbox geometry and target encoding (jax-free copies of the
+JAX package's)."""

@@ -1,1 +1,2 @@
-"""Folded-inference Darknet-53 YOLOv3 in PyTorch."""
+"""Darknet-53 YOLOv3 in PyTorch: the trainable module and the folded
+inference module."""

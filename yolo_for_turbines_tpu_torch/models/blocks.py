@@ -1,4 +1,4 @@
-"""Building blocks of the folded-inference model, in PyTorch.
+"""Building blocks of the trainable and the folded model, in PyTorch.
 
 Counterpart of ``yolo_for_turbines_tpu/models/blocks.py``. Inside the model
 activations are NCHW tensors (stored channels_last on the card, so their
@@ -7,12 +7,16 @@ memory is NHWC) and conv weights are OIHW; the JAX package keeps NHWC / HWIO.
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import math
+from typing import Dict, Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, needed for darknet-weight parity
+BN_MOMENTUM = 0.1  # torch default: new = (1 - m) * old + m * batch
 
 
 def leaky_relu(x):
@@ -32,12 +36,78 @@ def get_activation(name: str):
     return ACTIVATIONS[name]
 
 
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for cuDNN convs and cuBLAS matmuls, restored afterwards."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def conv2d(x, w, stride: int, padding: int, bias=None):
     """NCHW conv with explicit symmetric padding and floor output sizes.
 
     ``padding=1`` on a stride-2 3x3 conv pads both sides like the JAX
     package's explicit ((1, 1), (1, 1)); torch's ``"same"`` would not."""
     return F.conv2d(x, w, bias, stride=stride, padding=padding)
+
+
+class ConvBlock(nn.Module):
+    """Conv (no bias) -> BN -> activation, or conv + bias with no BN (a
+    head's last 1x1): the trainable layer of ``init_conv`` and
+    ``apply_conv_block``.
+
+    ``conv.weight`` is the JAX ``w`` in OIHW; ``bn.weight`` / ``bn.bias`` are
+    ``scale`` / ``bias``, ``bn.running_mean`` / ``bn.running_var`` the batch
+    stats ``mean`` / ``var``. Init as ``init_conv``: weights (and a BN-less
+    conv's bias) U(-1/sqrt(fan_in), 1/sqrt(fan_in)) from ``generator``;
+    scale 1, bias 0, mean 0, var 1.
+
+    ``nn.BatchNorm2d`` keeps the rules of ``bn_scale_shift``: eps 1e-5 and
+    momentum 0.1; eval mode normalizes with the running statistics; train
+    mode normalizes with the batch mean and biased variance over (B, H, W)
+    and updates the running variance with the unbiased one (n / (n - 1)).
+    Where it differs from ``bn_batch_moments``: the JAX package takes the
+    moments in one pass shifted by the running mean, E[(x - m)^2] -
+    (E[x] - m)^2 clamped at 0, and applies ``y * inv + shift`` with the
+    coefficients rounded to the compute dtype; torch's kernels reduce in
+    their own order and compute ``(y - mean) * invstd * w + b``. The values
+    agree to f32 rounding, not bit for bit. torch refuses train mode with
+    one value per channel, where the JAX package divides by max(n - 1, 1).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 bn: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        # symmetric padding with floor sizes, as the JAX conv's explicit pad
+        self.conv = nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, kernel, stride,
+                                       padding=1 if kernel == 3 else 0, bias=not bn)
+        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM) if bn else None
+        bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+        with torch.no_grad():
+            self.conv.weight.copy_(
+                (torch.rand(self.conv.weight.shape, generator=generator) * 2 - 1) * bound)
+            if not bn:
+                self.conv.bias.copy_((torch.rand(out_ch, generator=generator) * 2 - 1) * bound)
+
+    def forward(self, x, act=None):
+        y = self.conv(x)
+        if self.bn is not None:
+            y = self.bn(y)
+        return act(y) if act is not None else y
+
+    def folded(self) -> Dict:
+        """{"w": OIHW, "b"} with eval-mode BN folded in (``fold_conv_bn``)."""
+        w = self.conv.weight.detach()
+        if self.bn is None:
+            return {"w": w, "b": self.conv.bias.detach()}
+        return fold_conv_bn(
+            {"w": w, "scale": self.bn.weight.detach(), "bias": self.bn.bias.detach()},
+            {"mean": self.bn.running_mean, "var": self.bn.running_var})
 
 
 def fold_conv_bn(params: Dict, stats: Dict) -> Dict:

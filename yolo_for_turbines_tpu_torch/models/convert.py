@@ -1,11 +1,15 @@
-"""Weight bridge: a folded tree in the JAX layout -> the torch module, and
-back; the JAX package's int8 tree -> the port's ``qparams``.
+"""Weight bridge: the JAX ``(params, batch_stats)`` trees -> the trainable
+module, a folded tree in the JAX layout -> the folded module, and back; the
+JAX package's int8 tree -> the port's ``qparams``.
 
-The JAX package's ``fold_params`` (``models/yolov3.py``) gives a plan-aligned
-list of ``{"conv": {w, b}}``, ``{"blocks": [{"conv1", "conv2"}, ...]}``,
-``{"conv1", "conv2"}`` and ``{}`` entries with HWIO weights. Leaves may be
-numpy arrays (also bf16 ones), torch tensors, or anything ``np.asarray``
-takes. Both packages then compute the same function from the same numbers.
+The JAX trees are plan-aligned lists of ``{"conv": ...}``, ``{"blocks":
+[{"conv1", "conv2"}, ...]}``, ``{"conv1", "conv2"}`` (a head) and ``{}``
+entries with HWIO weights. A trainable conv holds ``{w, scale, bias}`` and
+its stats ``{mean, var}``; a head's last 1x1 holds ``{w, b}`` and its stats
+are None. ``fold_params`` (``models/yolov3.py``) gives ``{w, b}`` for every
+conv. Leaves may be numpy arrays (also bf16 ones), torch tensors, or
+anything ``np.asarray`` takes. Both packages then compute the same function
+from the same numbers.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from .blocks import ConvBlock
 from .yolov3 import (
     _LATER,
     FoldedConv,
@@ -25,6 +30,10 @@ from .yolov3 import (
     PlanResidual,
     PlanUpsample,
     ResidualStage,
+    TrainableHead,
+    TrainableResidualStage,
+    YOLOv3,
+    jax_layout,
 )
 
 
@@ -73,8 +82,7 @@ def folded_to_numpy(model: FoldedYOLOv3) -> list:
     (f32 unless the module was cast)."""
 
     def conv(c: FoldedConv) -> dict:
-        w = c.weight.detach().float().cpu().permute(2, 3, 1, 0)  # OIHW -> HWIO
-        return {"w": w.contiguous().numpy(), "b": c.bias.detach().float().cpu().numpy()}
+        return jax_layout(c.weight, c.bias)
 
     folded = []
     for layer in model.layers:
@@ -88,6 +96,81 @@ def folded_to_numpy(model: FoldedYOLOv3) -> list:
         else:
             folded.append({})
     return folded
+
+
+@torch.no_grad()
+def _fill_trainable(block: ConvBlock, p, s) -> None:
+    w = _to_f32(p["w"]).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    if tuple(w.shape) != tuple(block.conv.weight.shape):
+        raise ValueError(f"weight {tuple(w.shape)} != module {tuple(block.conv.weight.shape)}")
+    block.conv.weight.copy_(w)
+    if block.bn is None:
+        block.conv.bias.copy_(_to_f32(p["b"]))
+        return
+    block.bn.weight.copy_(_to_f32(p["scale"]))
+    block.bn.bias.copy_(_to_f32(p["bias"]))
+    block.bn.running_mean.copy_(_to_f32(s["mean"]))
+    block.bn.running_var.copy_(_to_f32(s["var"]))
+
+
+def trainable_from_numpy(plan: Plan, params, batch_stats, cfg: ModelConfig, *,
+                         device) -> YOLOv3:
+    """The trainable module for ``plan`` on ``device``, filled from the JAX
+    ``(params, batch_stats)`` trees (``YOLOv3.init`` or a trained state).
+
+    ``cfg`` supplies the activation; the plan must be ``build_plan(cfg)`` of
+    the model the trees belong to."""
+    model = YOLOv3(cfg, plan, generator=torch.Generator().manual_seed(0))
+    if not len(params) == len(batch_stats) == len(plan):
+        raise ValueError(f"trees have {len(params)} and {len(batch_stats)} entries, "
+                         f"plan {len(plan)}")
+    for layer, p, s in zip(model.layers, params, batch_stats):
+        if isinstance(layer, ConvBlock):
+            _fill_trainable(layer, p["conv"], s["conv"])
+        elif isinstance(layer, TrainableResidualStage):
+            if not len(p["blocks"]) == len(s["blocks"]) == len(layer.blocks):
+                raise ValueError("residual stage block count differs from the plan")
+            for blk, bp, bs in zip(layer.blocks, p["blocks"], s["blocks"]):
+                _fill_trainable(blk["conv1"], bp["conv1"], bs["conv1"])
+                _fill_trainable(blk["conv2"], bp["conv2"], bs["conv2"])
+        elif isinstance(layer, TrainableHead):
+            _fill_trainable(layer.conv1, p["conv1"], s["conv1"])
+            _fill_trainable(layer.conv2, p["conv2"], None)
+    return model.to(device)
+
+
+def trainable_to_numpy(model: YOLOv3):
+    """Inverse of :func:`trainable_from_numpy`: ``(params, batch_stats)``
+    trees in the JAX layout (HWIO), numpy float32."""
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    def conv(block: ConvBlock):
+        w = arr(block.conv.weight.permute(2, 3, 1, 0)).copy()  # OIHW -> HWIO
+        if block.bn is None:
+            return {"w": w, "b": arr(block.conv.bias)}, None
+        return ({"w": w, "scale": arr(block.bn.weight), "bias": arr(block.bn.bias)},
+                {"mean": arr(block.bn.running_mean), "var": arr(block.bn.running_var)})
+
+    params, stats = [], []
+    for layer in model.layers:
+        if isinstance(layer, ConvBlock):
+            p, s = conv(layer)
+            params.append({"conv": p})
+            stats.append({"conv": s})
+        elif isinstance(layer, TrainableResidualStage):
+            pairs = [{k: conv(blk[k]) for k in ("conv1", "conv2")} for blk in layer.blocks]
+            params.append({"blocks": [{k: v[0] for k, v in b.items()} for b in pairs]})
+            stats.append({"blocks": [{k: v[1] for k, v in b.items()} for b in pairs]})
+        elif isinstance(layer, TrainableHead):
+            (p1, s1), (p2, s2) = conv(layer.conv1), conv(layer.conv2)
+            params.append({"conv1": p1, "conv2": p2})
+            stats.append({"conv1": s1, "conv2": s2})
+        else:
+            params.append({})
+            stats.append({})
+    return params, stats
 
 
 def _leaf(a, device) -> torch.Tensor:

@@ -29,7 +29,6 @@ Only the Darknet-53 family is ported: CSP stages, max pools, routes and the
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Optional
 
 import numpy as np
@@ -43,9 +42,9 @@ from ..ops.kernels.resblock_int8_kernel import (
     kmajor_weights,
     pack_int8_stage,
 )
-from .blocks import get_activation
+from .blocks import full_f32, get_activation
 from .convert import qparams_from_numpy
-from .yolov3 import _LATER, PlanConv, PlanHead, PlanResidual, PlanUpsample
+from .yolov3 import _LATER, PlanConv, PlanHead, PlanResidual, PlanUpsample, _head_reshape
 
 INPUT_SCALE = 1.0 / 127.0  # inputs are [0, 1]
 
@@ -67,18 +66,6 @@ def _wq(w) -> tuple:
 
 def _unsupported(entry):
     return NotImplementedError(f"int8 plan entry {type(entry).__name__} {_LATER}")
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """TF32 off for cuDNN convs and cuBLAS matmuls, restored afterwards."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
@@ -105,7 +92,7 @@ def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
 
     plan_t = tuple(plan)
     routes = []
-    with torch.inference_mode(), _full_f32():
+    with torch.inference_mode(), full_f32():
         x = x.float().permute(0, 3, 1, 2)  # NCHW inside
         for i, (entry, p) in enumerate(zip(plan_t, folded)):
             if isinstance(entry, PlanConv):
@@ -341,12 +328,6 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
             raise _unsupported(entry)
         packed.append(q)
     return packed
-
-
-def _head_reshape(y, num_classes: int, anchors: int):
-    """(B,S,S,A*(5+C)) -> (B,A,S,S,5+C) f32."""
-    b, h, w, _ = y.shape
-    return y.float().reshape(b, h, w, anchors, num_classes + 5).permute(0, 3, 1, 2, 4)
 
 
 def apply_inference_int8(

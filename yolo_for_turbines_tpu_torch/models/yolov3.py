@@ -1,11 +1,21 @@
-"""Folded-inference YOLOv3 (Darknet-53 backbone + 3-scale heads) in PyTorch.
+"""YOLOv3 (Darknet-53 backbone + 3-scale heads) in PyTorch, trainable and
+folded.
 
 Counterpart of ``yolo_for_turbines_tpu/models/yolov3.py``: the same layer
-DSL and static plan, and an ``nn.Module`` with the semantics of
-``apply_inference(..., raw_heads=True)`` over BN-folded weights (conv + bias
-+ activation per layer). Routes are saved at the 8-block residual stages and
-popped LIFO after each upsample; a concat is ``[upsampled, route]``; a head
-is a branch and the trunk continues from the head's input.
+DSL and static plan, and two ``nn.Module``s over it:
+
+- ``YOLOv3``, the trainable model (conv + BN with running statistics +
+  activation), with the semantics of ``apply(plan, params, batch_stats, x,
+  train=...)``: ``.train()`` / ``.eval()`` choose the mode, the heads come
+  out as ``(B, A, S, S, 5+C)`` float32, and ``fold()`` gives the folded tree
+  of ``fold_params``;
+- ``FoldedYOLOv3``, with the semantics of ``apply_inference(...,
+  raw_heads=True)`` over BN-folded weights (conv + bias + activation per
+  layer), which serves.
+
+Routes are saved at the 8-block residual stages and popped LIFO after each
+upsample; a concat is ``[upsampled, route]``; a head is a branch and the
+trunk continues from the head's input.
 
 Only the Darknet-53 family is ported so far: CSP stages and the tiny
 backbone raise ``NotImplementedError``.
@@ -28,7 +38,7 @@ from ..ops.kernels.resblock_kernel import (
     stack_block_params,
     stage_wins,
 )
-from .blocks import conv2d, get_activation, upsample2x
+from .blocks import ConvBlock, conv2d, get_activation, upsample2x
 
 _LATER = "is not ported yet (the other model families come in a later slice of the port)"
 
@@ -155,6 +165,139 @@ def build_plan(cfg: ModelConfig, layer_config=LAYER_CONFIG) -> Plan:
         else:
             raise ValueError(f"Unknown layer config entry: {block!r}")
     return tuple(plan)
+
+
+def jax_layout(w: torch.Tensor, b: torch.Tensor) -> dict:
+    """An OIHW conv weight and its bias as the JAX tree's {"w": HWIO, "b"}
+    numpy float32 arrays."""
+    w = w.detach().float().cpu().permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return {"w": w.contiguous().numpy(), "b": b.detach().float().cpu().numpy()}
+
+
+def _head_reshape(y, num_classes: int, anchors: int):
+    """NHWC (B,S,S,A*(5+C)) -> (B,A,S,S,5+C) f32, channel order [anchor,
+    channel] with channel fastest (reference: code/model.py:146-148)."""
+    b, h, w, _ = y.shape
+    return y.float().reshape(b, h, w, anchors, num_classes + 5).permute(0, 3, 1, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# The trainable model
+# ---------------------------------------------------------------------------
+
+
+class TrainableResidualStage(nn.Module):
+    """A stack of residual blocks (1x1 halve, 3x3 restore), each conv + BN."""
+
+    def __init__(self, entry: PlanResidual, generator=None):
+        super().__init__()
+        c = entry.channels
+        self.entry = entry
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({"conv1": ConvBlock(c, c // 2, 1, generator=generator),
+                           "conv2": ConvBlock(c // 2, c, 3, generator=generator)})
+            for _ in range(entry.num_blocks)
+        )
+
+    def forward(self, x, act):
+        for blk in self.blocks:
+            y = blk["conv2"](blk["conv1"](x, act), act)
+            x = x + y if self.entry.use_residual else y
+        return x
+
+
+class TrainableHead(nn.Module):
+    """3x3 conv + BN + activation, then a 1x1 with a bias and no BN."""
+
+    def __init__(self, entry: PlanHead, generator=None):
+        super().__init__()
+        out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
+        self.entry = entry
+        self.conv1 = ConvBlock(entry.in_ch, entry.mid, 3, generator=generator)
+        self.conv2 = ConvBlock(entry.mid, out_ch, 1, bn=False, generator=generator)
+
+    def forward(self, x, act):
+        return self.conv2(self.conv1(x, act))
+
+
+class YOLOv3(nn.Module):
+    """The trainable model: conv + BN + activation per layer.
+
+    ``forward`` takes an NHWC image batch and returns one head per scale,
+    coarsest first, each ``(B, A, S, S, 5+C)`` float32: the counterpart of
+    ``apply(..., train=self.training)``. Train mode normalizes with the
+    batch statistics and updates the running ones; eval mode reads them.
+    The module runs in its parameters' dtype; mixed precision is the
+    caller's ``torch.autocast``. The JAX package's space-to-depth stem
+    (``cfg.s2d_stem``) is arithmetically the plain stem, which runs here.
+    Weights are drawn from ``generator`` as ``init_conv`` draws them.
+    """
+
+    def __init__(self, cfg: ModelConfig, plan: Optional[Plan] = None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = build_plan(cfg) if plan is None else plan
+        layers = []
+        for entry in self.plan:
+            if isinstance(entry, PlanConv):
+                layers.append(ConvBlock(entry.in_ch, entry.out_ch, entry.kernel, entry.stride,
+                                        bn=entry.bn, generator=generator))
+            elif isinstance(entry, PlanResidual):
+                layers.append(TrainableResidualStage(entry, generator))
+            elif isinstance(entry, PlanHead):
+                layers.append(TrainableHead(entry, generator))
+            elif isinstance(entry, PlanUpsample):
+                layers.append(nn.Identity())
+            else:
+                raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+        self.layers = nn.ModuleList(layers)
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        return self.cfg.strides
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        act = get_activation(self.cfg.activation)
+        x = x.to(next(self.parameters()).dtype).permute(0, 3, 1, 2)
+        preds: List[torch.Tensor] = []
+        routes: List[torch.Tensor] = []
+        for entry, layer in zip(self.plan, self.layers):
+            if isinstance(entry, PlanConv):
+                x = layer(x, act)
+            elif isinstance(entry, PlanResidual):
+                x = layer(x, act)
+                if entry.save_route:
+                    routes.append(x)
+            elif isinstance(entry, PlanHead):
+                y = layer(x, act).permute(0, 2, 3, 1)
+                preds.append(_head_reshape(y, entry.num_classes, entry.anchors_per_scale))
+            elif isinstance(entry, PlanUpsample):
+                x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
+        return preds
+
+    @torch.no_grad()
+    def fold(self) -> list:
+        """Every eval-mode BN folded into its conv (``fold_params``): a
+        folded tree in the JAX layout (HWIO numpy float32), which
+        ``models/convert.py::folded_from_numpy`` and
+        ``Predictor.from_folded`` take."""
+
+        def conv(block: ConvBlock) -> dict:
+            return jax_layout(**block.folded())
+
+        folded = []
+        for layer in self.layers:
+            if isinstance(layer, ConvBlock):
+                folded.append({"conv": conv(layer)})
+            elif isinstance(layer, TrainableResidualStage):
+                folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
+                                          for blk in layer.blocks]})
+            elif isinstance(layer, TrainableHead):
+                folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
+            else:
+                folded.append({})
+        return folded
 
 
 # ---------------------------------------------------------------------------

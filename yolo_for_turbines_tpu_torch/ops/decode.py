@@ -1,15 +1,63 @@
-"""Raw-head decode on torch tensors (counterpart of ``ops/decode.py``).
+"""Cells -> boxes decode on torch tensors (counterpart of ``ops/decode.py``).
 
-Consumes the model's raw NHWC heads ``(B, S, S, A*(5+C))`` and returns
-``(B, S*S*A, 6)`` float32 rows ``[cx, cy, w, h, score, class]`` in
-normalized image coordinates, cells-major (the JAX ``decode_raw_scale``
-order). Box math runs in f32; the class argmax stays in the head's dtype.
-Anchors come pre-scaled by the grid size.
+Every function returns ``(B, N, 6)`` float32 rows ``[cx, cy, w, h, score,
+class]`` in normalized image coordinates. Anchors come pre-scaled by the
+grid size (cell units).
+
+- ``decode_scale`` / ``decode_all_scales`` read the reference's head layout
+  ``(B, A, S, S, 5+C)`` (the trainable module's output), anchor-major, or
+  with ``is_pred=False`` the encoded target grids ``(B, A, S, S, 6)``;
+- ``decode_raw_scale`` / ``decode_raw_all`` read the folded model's raw NHWC
+  heads ``(B, S, S, A*(5+C))``, cells-major (the JAX ``decode_raw_scale``
+  order): box math in f32, the class argmax in the head's dtype.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def decode_scale(predictions, anchors, grid_size: int, is_pred: bool = True) -> torch.Tensor:
+    """Decode one scale's raw predictions (sigmoid / exp applied) or, with
+    ``is_pred=False``, its encoded targets."""
+    predictions = torch.as_tensor(predictions)
+    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=predictions.device)
+    b, a, s = predictions.shape[0], anchors.shape[0], grid_size
+
+    if is_pred:
+        xy = torch.sigmoid(predictions[..., 0:2])
+        wh = torch.exp(predictions[..., 2:4]) * anchors.reshape(1, a, 1, 1, 2)
+        scores = torch.sigmoid(predictions[..., 4:5])
+        best_class = torch.argmax(predictions[..., 5:], dim=-1)[..., None].to(predictions.dtype)
+    else:
+        xy = predictions[..., 0:2]
+        wh = predictions[..., 2:4]
+        scores = predictions[..., 4:5]
+        best_class = predictions[..., 5:6]
+
+    ar = torch.arange(s, dtype=predictions.dtype, device=predictions.device)
+    # cell index j runs along axis 3 (x), i along axis 2 (y)
+    cx = (xy[..., 0:1] + ar[None, None, None, :, None]) / s
+    cy = (xy[..., 1:2] + ar[None, None, :, None, None]) / s
+    wh = wh / s
+
+    boxes = torch.cat([cx, cy, wh, scores, best_class], dim=-1)
+    return boxes.reshape(b, a * s * s, 6).float()
+
+
+def cells_to_boxes(predictions, anchors, grid_size: int, is_pred: bool = True):
+    """Reference-shaped API: nested Python lists (B, 3*S*S, 6)."""
+    return decode_scale(predictions, anchors, grid_size, is_pred).tolist()
+
+
+def decode_all_scales(predictions, scaled_anchors, grid_sizes) -> torch.Tensor:
+    """Decode and concatenate the scales' heads (stride-32 first):
+    (B, sum(A*S*S), 6)."""
+    parts = [
+        decode_scale(p, scaled_anchors[i], grid_sizes[i], is_pred=True)
+        for i, p in enumerate(predictions)
+    ]
+    return torch.cat(parts, dim=1)
 
 
 def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,

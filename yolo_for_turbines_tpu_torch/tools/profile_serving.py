@@ -1,13 +1,18 @@
-"""Where the device time of ``Predictor.predict_batch`` goes (``torch.profiler``).
+"""Where the device time of ``Predictor.predict_batch`` (or of the fused
+eval step) goes (``torch.profiler``).
 
-    python -m yolo_for_turbines_tpu_torch.tools.profile_serving [--batch 128] [--out FILE]
+    python -m yolo_for_turbines_tpu_torch.tools.profile_serving [--batch 128] [--eval] [--out FILE]
 
 builds the 80-class Darknet-53 YOLOv3 at 416px from seeded random weights
 (as ``chip_smoke.py`` does), profiles ``predict_batch`` in bf16, then
 quantizes it (int8 PTQ, calibrated on 8 seeded images) and profiles the int8
-path. Per path it prints one JSON line (wall ms per batch, device-busy ms per
-batch, the device's idle share) and the kernels with the most device time;
-``--out`` also gets ``torch.profiler``'s full table. Needs a CUDA device.
+path. With ``--eval`` it profiles instead the fused eval step
+(``train/evaluate.py::make_fused_eval_step``) of the trainable module from
+its seeded init, in bf16 autocast, on seeded noise images with empty target
+grids. Per path it prints one JSON line (wall ms per batch, device-busy ms
+per batch, the device's idle share) and the kernels with the most device
+time; ``--out`` also gets ``torch.profiler``'s full table. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -22,24 +27,29 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 
-def profile_predict_batch(pred, x, iters: int = 2, warmup: int = 3, top: int = 12):
-    """Profile ``iters`` calls of ``pred.predict_batch(x)`` after ``warmup``.
+def profile_predict_batch(pred, x, **kwargs):
+    """:func:`profile_calls` of ``pred.predict_batch(x)``."""
+    return profile_calls(lambda: pred.predict_batch(x), torch.device(pred.device), **kwargs)
+
+
+def profile_calls(call, device, iters: int = 2, warmup: int = 3, top: int = 12):
+    """Profile ``iters`` calls of ``call()`` on ``device`` after ``warmup``.
 
     Returns (summary, table): summary has ``wall_ms`` and ``device_busy_ms``
     per call (the device-side events' time; 0 on the CPU), ``idle_share``
     = 1 - busy / wall, and ``top``, the kernels and copies with the most
     device time per call as [name, ms, launches per call]; table is the
     profiler's own."""
-    cuda = torch.device(pred.device).type == "cuda"
+    cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     for _ in range(warmup):
-        pred.predict_batch(x)
+        call()
     if cuda:
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            pred.predict_batch(x)
+            call()
         if cuda:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
@@ -60,9 +70,21 @@ def profile_predict_batch(pred, x, iters: int = 2, warmup: int = 3, top: int = 1
     return summary, table
 
 
+def profile_eval_step(model, x, targets, **kwargs):
+    """:func:`profile_calls` of the fused eval step (bf16 autocast) of the
+    trainable ``model`` on ``(x, targets)``."""
+    from ..config import ANCHORS
+    from ..train.evaluate import make_fused_eval_step
+
+    step = make_fused_eval_step(model)
+    return profile_calls(lambda: step(x, targets, ANCHORS), x.device, **kwargs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--eval", action="store_true",
+                    help="profile the fused eval step of the trainable module instead")
     ap.add_argument("--out", default=None, help="also write the profiler tables here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -74,6 +96,22 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
+    if args.eval:
+        from ..config import grid_sizes_for
+        from ..models.yolov3 import YOLOv3
+
+        model = YOLOv3(model_cfg, generator=torch.Generator().manual_seed(0)).to(
+            dev, memory_format=torch.channels_last)
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=(args.batch, 416, 416, 3)).astype(np.float32)).to(dev)
+        targets = [torch.zeros(args.batch, model_cfg.anchors_per_scale, s, s, 6, device=dev)
+                   for s in grid_sizes_for(416, model_cfg.strides)]
+        summary, table = profile_eval_step(model, x, targets)
+        print(json.dumps({"path": "eval_bf16", "batch": args.batch, **summary}), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(f"== eval step, bf16 autocast, B={args.batch}\n{table}")
+        return 0
     tree = init_plan(build_plan(model_cfg), torch.Generator().manual_seed(0))
     pred = Predictor.from_folded(model_cfg, tree, device=dev)
     size = pred.image_size
