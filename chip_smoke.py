@@ -67,7 +67,23 @@ Phases, one JSON line each:
           against the trainable module's; eval-step images/s at B = 8 and
           32, evaluate_map_device's wall time over the 32 images,
           calc_map_device_batched at I = 1000, K = 256, G = 128, C = 80, and
-          host calc_map over the 32 images.
+          host calc_map over the 32 images;
+  train   the 2-class Darknet-53 with mish that train() builds (seeded init):
+          one float32 train step on the card (TF32 on around it, so the
+          step's own switch must turn it off) against the port's float32 CPU
+          step from the same weights at B = 2, 416px (loss terms, every
+          parameter's update, running statistics); 20 bf16 autocast steps of
+          the Trainer at B = 32 on one fixed batch at 416 and at 608px after
+          prewarm (finite, the loss falling; step time, images/s, peak
+          memory; at 416 the torch.profiler idle share of one step); the
+          trained state through a checkpoint and back, bit for bit; train()
+          for 10 epochs of 2 steps (10 of warmup) on 96 seeded synthetic
+          JPEGs (B = 32):
+          the loader's host time per batch, K1 launched at epoch 9's fused
+          eval at least once per val batch (K2 never), the metrics JSONL
+          with train, val and mAP rows, its checkpoint back on the card bit
+          for bit, and that state's epoch-9 eval with device mAP equal to
+          host calc_map.
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -79,6 +95,7 @@ figures), the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -163,6 +180,24 @@ EVAL_MAP_TOL = 1e-5
 # image pass the 0.5 threshold, and few logits lie where the card's and
 # the CPU's rounding could flip a count.
 OBJECTNESS_MEAN, OBJECTNESS_STD = -4.0, 1.5
+# train phase: the 2-class Darknet-53 with mish that train() builds.
+# f32 step on the card (TF32 off by the step's own switch) against the
+# port's f32 CPU step at B = 2, 416px, from the same weights (an H100): loss
+# terms, relative per term, measured 3.6e-6 (obj_loss); each parameter
+# leaf's update (new - old), relative RMS, worst leaf 1.55e-4 (a BN scale of
+# the 13x13 stage; 3.7e-5 over all parameters); running statistics, worst
+# leaf 3.5e-6
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_UPDATE_RTOL = 5e-4
+TRAIN_STATS_RTOL = 1e-5
+# bf16 autocast steps on one fixed batch of B = 32 at 416 and 608px: the
+# mean loss of the last 5 of TRAIN_STEPS steps below that of the first 5
+TRAIN_STEPS = 20
+# train(): TRAIN_IMAGES seeded synthetic JPEGs (640x480), split 85 / 15,
+# B = 32, max_num_steps = 20 (half of them warmup): 2 steps per epoch for 10
+# epochs, and the fused eval (K1) at epoch 9
+TRAIN_IMAGES = 96
+TRAIN_DIR = Path(__file__).resolve().parent / "_smoke"
 
 
 def emit(obj) -> None:
@@ -1092,6 +1127,230 @@ def phase_eval(dev):
     return launches, fold_launches
 
 
+def leaf_rel_rms(got: dict, want: dict):
+    """(worst relative RMS over the leaves of two name -> tensor dicts, its
+    leaf)."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        err = rel_rms(got[k], w) if float(w.double().norm()) > 0 else float(got[k].abs().max())
+        worst = max(worst, (err, k))
+    return worst
+
+
+def train_f32_check(dev, model_cfg, out):
+    """One float32 train step on the card (TF32 on around it: the step must
+    turn it off) against the port's float32 CPU step from the same weights,
+    B = 2, 416px."""
+    import copy
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3
+    from yolo_for_turbines_tpu_torch.tools.profile_serving import train_batch
+    from yolo_for_turbines_tpu_torch.train import steps
+
+    tc = cfg.TrainConfig(lr=1e-2, warmup_enabled=False, compute_dtype="float32")
+    base = YOLOv3(model_cfg, generator=torch.Generator().manual_seed(SEED + 7))
+    anchors = torch.from_numpy(cfg.scaled_anchors_array(cfg.TURBINE_ANCHORS, 416))
+    x, targets = train_batch(2, 416, "cpu", seed=SEED + 8)
+    before = {k: v.clone() for k, v in base.state_dict().items()}
+    results = {}
+    for where in ("card", "cpu"):
+        model = copy.deepcopy(base)
+        if where == "card":
+            model = model.to(dev, memory_format=torch.channels_last)
+        state = steps.create_train_state(model, tc)
+        step = steps.make_train_step(tc)
+        t0 = time.perf_counter()
+        with tf32_on() if where == "card" else contextlib.nullcontext():
+            m = step(state, x.to(model_dev(model)), tuple(t.to(model_dev(model)) for t in targets),
+                     anchors.to(model_dev(model)))
+            if where == "card":
+                torch.cuda.synchronize()
+        out[f"f32_step_{where}_s"] = time.perf_counter() - t0
+        results[where] = ({k: float(v) for k, v in m.items()},
+                          {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (m_d, s_d), (m_h, s_h) = results["card"], results["cpu"]
+    params = {n for n, _ in base.named_parameters()}
+    upd = {k: (v.double() - before[k].double()) for k, v in s_d.items() if k in params}
+    upd_h = {k: (v.double() - before[k].double()) for k, v in s_h.items() if k in params}
+    stats = {k: v for k, v in s_d.items() if k.endswith(("running_mean", "running_var"))}
+    out["f32_loss_terms_card"] = m_d
+    out["f32_loss_rel_err"] = {k: abs(m_d[k] - m_h[k]) / abs(m_h[k]) for k in m_h}
+    out["f32_update_rel_rms_worst"] = leaf_rel_rms(upd, upd_h)
+    out["f32_update_rel_rms_all"] = rel_rms(torch.cat([v.flatten() for v in upd.values()]),
+                                            torch.cat([upd_h[k].flatten() for k in upd]))
+    out["f32_stats_rel_rms_worst"] = leaf_rel_rms(stats, {k: s_h[k] for k in stats})
+    return (max(out["f32_loss_rel_err"].values()) <= TRAIN_LOSS_RTOL
+            and out["f32_update_rel_rms_worst"][0] <= TRAIN_UPDATE_RTOL
+            and out["f32_stats_rel_rms_worst"][0] <= TRAIN_STATS_RTOL
+            and min(float(v.abs().max()) for v in upd.values()) > 0)
+
+
+def model_dev(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def checkpoint_round_trip(state, path, fresh) -> bool:
+    """``state`` saved to ``path`` (unless it is already there) and loaded
+    into ``fresh``'s on the card: module, optimizer, step and hyper equal
+    bit for bit."""
+    from yolo_for_turbines_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    if state is not None:
+        save_checkpoint(state, path)
+    want = torch.load(path, weights_only=True)
+    got = load_checkpoint(fresh.state, path).snapshot()
+    opt_w, opt_g = want["optimizer"]["state"], got["optimizer"]["state"]
+    return (got["step"] == want["step"] and got["hyper"] == want["hyper"]
+            and got["model"].keys() == want["model"].keys()
+            and all(torch.equal(got["model"][k], v) for k, v in want["model"].items())
+            and opt_g.keys() == opt_w.keys()
+            and all(torch.equal(opt_g[i]["momentum_buffer"], s["momentum_buffer"])
+                    for i, s in opt_w.items()))
+
+
+def train_bf16_steps(dev, size: int, out):
+    """TRAIN_STEPS bf16 autocast steps of the Trainer at B = 32 on one fixed
+    batch, after prewarm of that bucket: step time, images/s, peak memory,
+    and whether the loss fell. At 416px also the profile of one step and the
+    trained state's checkpoint round trip."""
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.tools.profile_serving import profile_train_step, train_batch
+    from yolo_for_turbines_tpu_torch.train.trainer import Trainer
+
+    batch = 32
+    trainer = Trainer(cfg.TrainConfig(batch_size=batch, warmup_enabled=False), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.prewarm(sizes=(size,))
+    out[f"prewarm_{size}_s"] = time.perf_counter() - t0
+    x, targets = train_batch(batch, size, dev, seed=SEED + 9)
+    anchors = trainer._anchors(size)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.train_step(trainer.state, x, targets, anchors)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    losses = torch.stack(losses).tolist()
+    out[f"bf16_B32_{size}"] = {
+        "step_ms": ms, "images_per_s": batch * 1e3 / ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_mean_first5": float(np.mean(losses[:5])), "loss_mean_last5": float(np.mean(losses[-5:]))}
+    r = out[f"bf16_B32_{size}"]
+    ok = all(np.isfinite(losses)) and r["loss_mean_last5"] < r["loss_mean_first5"]
+    if size == 416:
+        summary, _ = profile_train_step(trainer, x, targets, iters=3, warmup=2, top=8)
+        out["profile_bf16_B32_416"] = summary
+        TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+        fresh = Trainer(cfg.TrainConfig(batch_size=batch, warmup_enabled=False), device=dev)
+        out["trained_checkpoint_bit_for_bit"] = checkpoint_round_trip(
+            trainer.state, TRAIN_DIR / "steps.ckpt", fresh)
+        ok = ok and out["trained_checkpoint_bit_for_bit"] and trainer.state.step == TRAIN_STEPS
+    return ok
+
+
+def phase_train(dev):
+    """The training path of the 2-class Darknet-53 (mish) at full width."""
+    import shutil
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.data.loader import get_loaders
+    from yolo_for_turbines_tpu_torch.data.splits import create_csv_files
+    from yolo_for_turbines_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+    from yolo_for_turbines_tpu_torch.train.checkpoint import load_checkpoint
+    from yolo_for_turbines_tpu_torch.train.trainer import Trainer, train
+
+    model_cfg = cfg.ModelConfig(num_classes=cfg.NUM_TURBINE_CLASSES, activation="mish")
+    out = {"phase": "train", "model": "darknet53 yolov3, 2 classes, mish, trainable",
+           "loss_rtol": TRAIN_LOSS_RTOL, "update_rtol": TRAIN_UPDATE_RTOL,
+           "stats_rtol": TRAIN_STATS_RTOL}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        ok = {"f32_card_vs_cpu": train_f32_check(dev, model_cfg, out)}
+        for size in (416, 608):
+            ok[f"bf16_{size}"] = train_bf16_steps(dev, size, out)
+            torch.cuda.empty_cache()
+
+        # train() on a seeded synthetic set: 10 epochs of 2 steps, epoch 9's
+        # fused eval launching K1
+        t0 = time.perf_counter()
+        root = generate_synthetic_dataset(TRAIN_DIR / "data", num_images=TRAIN_IMAGES, seed=SEED)
+        create_csv_files(root / "images", root / "labels", root, {"train": 0.85, "val": 0.15},
+                         image_ext=".jpg")
+        out["synthetic_set_s"] = time.perf_counter() - t0
+        folders = {"image_folder": root / "images", "annotation_folder": root / "labels"}
+        # the default warmup (1% of the steps) is 1 step of 20, and from
+        # scratch at the peak lr the loss can diverge by the third step;
+        # 10 steps ramp the lr as 100 of the default 10,000 do
+        tc = cfg.TrainConfig(batch_size=32, max_num_steps=20, warmup=0.5)
+        train_loader, val_loader, _ = get_loaders(root, batch_size=32, anchors=cfg.TURBINE_ANCHORS,
+                                                  num_workers=8, **folders)
+        # the loader's host time per batch (decode + C++ augment + collate),
+        # over two passes after a first that starts its threads
+        sum(1 for _ in train_loader)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in range(2) for _ in train_loader)
+        out["loader_s_per_batch"] = (time.perf_counter() - t0) / n
+        out["val_batches"] = len(val_loader)
+
+        maps = []
+        nms_kernel.launches = resblock_kernel.launches = iou_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train(tc, root, TRAIN_DIR / "models", "smoke", early_stop=5, device=dev,
+                     report_callback=maps.append, **folders)
+        torch.cuda.synchronize()
+        out["train_10_epochs_s"] = time.perf_counter() - t0
+        launches = {"greedy_nms": nms_kernel.launches,
+                    "fused_residual_stage": resblock_kernel.launches,
+                    "pairwise_iou": iou_kernel.launches}
+        out["launches"], out["best_map"], out["reported_maps"] = launches, best, maps
+        ok["k1_once_per_val_batch"] = (launches["greedy_nms"] >= len(val_loader) and len(maps) == 1
+                                       and launches["fused_residual_stage"] == 0)
+
+        rows = [json.loads(line) for line in
+                open(TRAIN_DIR / "models" / "YOLOv3_Turbine_Detection_smoke_metrics.jsonl")]
+        count = {k: sum(k in r for r in rows) for k in ("lr", "train_loss", "val_loss", "mAP")}
+        out["metrics_rows"] = count
+        # eval-mode BN reads running statistics that 2 steps an epoch leave
+        # far behind the weights: the val loss may overflow (not gated)
+        out["val_loss_by_epoch"] = [r["val_loss"] if np.isfinite(r["val_loss"]) else "nan"
+                                    for r in rows if "val_loss" in r]
+        ok["metrics_rows"] = count == {"lr": 20, "train_loss": 10, "val_loss": 10, "mAP": 1} and all(
+            np.isfinite(r["train_loss"]) for r in rows if "train_loss" in r)
+
+        # the checkpoint back on the card, bit for bit
+        ckpt = TRAIN_DIR / "models" / "best_model_smoke.ckpt"
+        back = Trainer(tc, device=dev)
+        ok["checkpoint_bit_for_bit"] = checkpoint_round_trip(None, ckpt, back)
+        out["checkpoint_step"] = back.state.step
+
+        # epoch 9's eval of the loaded state: device mAP against host calc_map
+        logs = []
+
+        class Rows:
+            def log(self, d):
+                logs.append(dict(d))
+
+        dev_map = back.val_one_epoch(val_loader, 9, Rows())[1]
+        host = Trainer(dataclasses.replace(tc, device_eval=False), device=dev)
+        load_checkpoint(host.state, ckpt)
+        host_map = host.val_one_epoch(val_loader, 9, Rows())[1]
+        out["map_device"], out["map_host"] = dev_map, host_map
+        ok["device_map_equals_host"] = abs(dev_map - host_map) <= EVAL_MAP_TOL
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["ok"] = ok
+    emit(out)
+    require(all(ok.values()), f"train phase failed: {ok}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1120,11 +1379,13 @@ def main() -> int:
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)
+    launches_train = phase_train(dev)
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
                    "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
-                   "eval_fold": launches_fold["greedy_nms"]}
+                   "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"]}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
-                   "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"]}
+                   "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"],
+                   "train": launches_train["pairwise_iou"]}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -1138,7 +1399,8 @@ def main() -> int:
          "launches_by_path": {"main": launches["fused_residual_stage"],
                               "main_f32": launches_f32["fused_residual_stage"],
                               "eval": launches_eval["fused_residual_stage"],
-                              "eval_fold": launches_fold["fused_residual_stage"]}, **k2},
+                              "eval_fold": launches_fold["fused_residual_stage"],
+                              "train": launches_train["fused_residual_stage"]}, **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/iou.cu",

@@ -76,3 +76,28 @@ def test_letterbox_packer_matches_jax_bit_for_bit(hw):
     assert got is not None, "the port's letterbox packer did not build"
     assert got.dtype == np.float32 and got.shape == (2, 416, 416, 3)
     np.testing.assert_array_equal(got, want)
+
+
+def test_train_config_fields_match_jax():
+    want = [(f.name, f.type, f.default) for f in dataclasses.fields(jax_cfg.TrainConfig)]
+    got = [(f.name, f.type, f.default) for f in dataclasses.fields(cfg.TrainConfig)]
+    assert got == want
+    assert cfg.TrainConfig().compute_dtype == "bfloat16"  # autocast in the port
+    assert cfg.MULTI_SCALE_TRAIN_SIZES == jax_cfg.MULTI_SCALE_TRAIN_SIZES
+
+
+def test_train_config_json_reads_in_both_packages():
+    tc = cfg.TrainConfig(lr=3e-4, batch_size=8, decay_lr=True, compute_dtype="float32")
+    assert tc.to_json() == jax_cfg.TrainConfig(**dataclasses.asdict(tc)).to_json()
+    assert dataclasses.asdict(jax_cfg.TrainConfig.from_json(tc.to_json())) == dataclasses.asdict(tc)
+    extra = tc.to_json()[:-1] + ', "anchors": [1, 2]}'
+    assert cfg.TrainConfig.from_json(extra) == tc
+
+
+@pytest.mark.parametrize("payload", [{"config": {"lr": 0.01}, "mAP": 0.5}, {"lr": 0.02}])
+def test_load_hyperparam_config_matches_jax(tmp_path, payload):
+    import json
+
+    (tmp_path / "best.json").write_text(json.dumps(payload))
+    assert cfg.load_hyperparam_config(tmp_path, "best.json") == jax_cfg.load_hyperparam_config(
+        tmp_path, "best.json")

@@ -1,5 +1,6 @@
-"""Torch port: importing it, serving with it (folded and int8) and
-evaluating with it (``evaluate_map_device`` of the trainable module) imports
+"""Torch port: importing it, serving with it (folded and int8), evaluating
+with it (``evaluate_map_device`` of the trainable module) and training with
+it (``train()``, the data layer, the darknet loader, the CLI module) imports
 neither jax nor any module of the JAX package (yolo_for_turbines_tpu).
 
 Runs in a subprocess because this test process has jax loaded already
@@ -70,6 +71,63 @@ def test_port_imports_and_serves_without_jax():
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+TRAIN_SCRIPT = r"""
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from yolo_for_turbines_tpu_torch.config import ModelConfig, TrainConfig
+from yolo_for_turbines_tpu_torch.data.splits import create_csv_files
+from yolo_for_turbines_tpu_torch.data.synthetic import generate_synthetic_dataset
+from yolo_for_turbines_tpu_torch.models import darknet_weights
+from yolo_for_turbines_tpu_torch.train import __main__ as cli
+from yolo_for_turbines_tpu_torch.train import trainer
+from yolo_for_turbines_tpu_torch.utils import checked_loss, seed_everything
+
+sys.path.insert(0, "tests")
+from helpers import MINI_LAYERS  # plain data, no jax
+
+seed_everything(0)
+orig = trainer.Trainer.__init__
+
+
+def mini(self, train_cfg, model_cfg=None, **kw):
+    orig(self, train_cfg, model_cfg=ModelConfig(num_classes=2, layer_config=MINI_LAYERS), **kw)
+
+
+trainer.Trainer.__init__ = mini
+with tempfile.TemporaryDirectory() as tmp:
+    root = generate_synthetic_dataset(Path(tmp) / "syn", num_images=6, image_size=(96, 72))
+    create_csv_files(root / "images", root / "labels", root, {"train": 0.5, "val": 0.5},
+                     image_ext=".jpg")
+    tc = TrainConfig(batch_size=2, max_num_steps=2, multi_scale=False, image_size=64,
+                     compute_dtype="float32")
+    best = trainer.train(tc, root, Path(tmp) / "out", "imp", early_stop=2, num_workers=1,
+                         image_folder=root / "images", annotation_folder=root / "labels",
+                         device="cpu")
+    assert 0.0 <= best <= 1.0
+    assert (Path(tmp) / "out" / "best_model_imp.ckpt").exists()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_trains_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"  # beside other test workers: one thread
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr

@@ -1,4 +1,5 @@
-"""Torch port: the predict_batch profiler (tools/profile_serving.py).
+"""Torch port: the profiler of predict_batch, the eval step and the train
+step (tools/profile_serving.py).
 
 On the CPU the profiler sees no device, so the summary's device time is 0
 and its idle share 1; the card's numbers come only from a run on a GPU.
@@ -14,6 +15,7 @@ from yolo_for_turbines_tpu_torch.inference import Predictor
 from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3, build_plan, init_plan
 
 from helpers import MINI_LAYERS
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _predictor():
@@ -43,6 +45,25 @@ def test_profile_eval_step_on_cpu():
     summary, table = profile_serving.profile_eval_step(model, x, targets, iters=1, warmup=1)
     assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0
     assert "Self CPU" in table
+
+
+def test_profile_train_step_on_cpu():
+    from yolo_for_turbines_tpu_torch.config import TrainConfig
+    from yolo_for_turbines_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+    trainer = Trainer(TrainConfig(batch_size=2, compute_dtype="float32"), cfg, device="cpu")
+    x, targets = profile_serving.train_batch(2, 64, "cpu")
+    assert x.shape == (2, 64, 64, 3) and [t.shape[2] for t in targets] == [2, 4, 8]
+    # assign_targets gives each box an anchor in every scale
+    assert all(float(t[..., 4].max()) == 1.0 for t in targets)
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    summary, table = profile_serving.profile_train_step(trainer, x, targets, iters=1, warmup=1)
+    assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0
+    assert "Self CPU" in table
+    # the profiled steps ran on a copy of the state
+    assert trainer.state.step == 0
+    assert all(torch.equal(before[k], v) for k, v in trainer.model.state_dict().items())
 
 
 def test_profiling_cli_needs_a_card(monkeypatch):

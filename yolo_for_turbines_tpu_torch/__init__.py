@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of yolo_for_turbines_tpu: the 416px serving path
-(bf16 and int8 PTQ) and the eval path (the trainable Darknet-53 in eval
-mode, the 4-term loss, decode, host and device mAP).
+(bf16 and int8 PTQ), the eval path (the trainable Darknet-53 in eval mode,
+the 4-term loss, decode, host and device mAP) and the training path (SGD
+steps, checkpoints, darknet weights, the numpy data layer, ``train()``).
 
 The JAX package beside this one is the reference; module names mirror it
 (``models/yolov3.py``, ``ops/nms.py``, ``inference.py``, ...). Its four

@@ -1,16 +1,19 @@
-"""Model configuration, serving and eval constants of the port.
+"""Model, training and eval configuration and constants of the port.
 
 The port's own copy of what it reads from ``yolo_for_turbines_tpu/config.py``
-(which it never imports). ``ModelConfig`` and ``EvalConfig`` keep the same
-field names, types, defaults and order, so a bundle manifest written by the
-JAX package's ``serving.save_predictor`` builds it with
-``ModelConfig(**manifest)``. ``tests/test_torch_config.py`` holds this copy
-to the original.
+(which it never imports). ``ModelConfig``, ``EvalConfig`` and
+``TrainConfig`` keep the same field names, types, defaults and order, so a
+bundle manifest written by the JAX package's ``serving.save_predictor``
+builds it with ``ModelConfig(**manifest)`` and a run config or HPO result
+written by either package reads in the other. ``tests/test_torch_config.py``
+holds this copy to the original.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -19,6 +22,9 @@ DEF_IMAGE_SIZE = 416
 MAP_IOU_THRESHOLD = 0.5
 CONF_THRESHOLD = 0.5
 NMS_IOU_THRESHOLD = 0.45
+
+# Multi-scale training buckets (reference: code/config.py:43-45)
+MULTI_SCALE_TRAIN_SIZES = (416, 448, 480, 512, 544, 576, 608)
 
 # Normalized (w, h) anchors per scale, large scale (stride 32) first.
 ANCHORS = (
@@ -93,3 +99,54 @@ class EvalConfig:
     map_iou_threshold: float = MAP_IOU_THRESHOLD
     max_boxes: int = 256  # fixed NMS capacity per image (padded/masked)
     box_format: str = "center"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyperparameters; keys mirror the reference HPO config
+    (reference: code/train.py:171-202,298-301)."""
+
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    batch_size: int = 32
+    max_num_steps: int = 10000
+    warmup: float = 0.01  # fraction of max_num_steps spent in linear warmup
+    activation: str = "mish"
+    image_size: int = DEF_IMAGE_SIZE
+    multi_scale: bool = True
+    mosaic: bool = False
+    # RAM-cache decoded train/val images across epochs
+    cache_images: bool = False
+    freeze_backbone: bool = False
+    load_weights: bool = False
+    load_checkpoint: bool = False
+    warmup_enabled: bool = True
+    decay_lr: bool = False
+    num_batch_to_resize: int = 10
+    ignore_iou_threshold: float = 0.5
+    seed: int = 424242
+    # "bfloat16": the f32 module runs under torch.autocast(bfloat16), with
+    # f32 parameters, BN statistics and loss and no GradScaler; "float32":
+    # TF32 off (models/blocks.py::full_f32)
+    compute_dtype: str = "bfloat16"
+    # mAP of the every-10th-epoch eval on the device
+    # (ops/map.py::calc_map_device_batched); False: host calc_map
+    device_eval: bool = True
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @staticmethod
+    def from_json(s: str) -> "TrainConfig":
+        d = json.loads(s)
+        fields = {f.name for f in dataclasses.fields(TrainConfig)}
+        return TrainConfig(**{k: v for k, v in d.items() if k in fields})
+
+
+def load_hyperparam_config(model_folder, config_name: str) -> dict:
+    """Read a best_config.json written by HPO (its "config" entry, or the
+    whole file when it has none)."""
+    with open(Path(model_folder) / config_name, "r") as f:
+        payload = json.load(f)
+    return payload["config"] if "config" in payload else payload

@@ -1,2 +1,2 @@
-"""numpy/PIL letterbox geometry and target encoding (jax-free copies of the
-JAX package's)."""
+"""Host data layer: numpy + PIL augmentation, the C++ train augmenter, the
+YOLO dataset, split and synthetic-set tooling, and the threaded loader."""

@@ -121,9 +121,17 @@ def trainable_from_numpy(plan: Plan, params, batch_stats, cfg: ModelConfig, *,
     ``cfg`` supplies the activation; the plan must be ``build_plan(cfg)`` of
     the model the trees belong to."""
     model = YOLOv3(cfg, plan, generator=torch.Generator().manual_seed(0))
-    if not len(params) == len(batch_stats) == len(plan):
+    load_trainable(model, params, batch_stats)
+    return model.to(device)
+
+
+def load_trainable(model: YOLOv3, params, batch_stats) -> None:
+    """Overwrite the trainable module's weights and running statistics, in
+    place and on its device, from the JAX ``(params, batch_stats)`` trees of
+    its plan."""
+    if not len(params) == len(batch_stats) == len(model.plan):
         raise ValueError(f"trees have {len(params)} and {len(batch_stats)} entries, "
-                         f"plan {len(plan)}")
+                         f"plan {len(model.plan)}")
     for layer, p, s in zip(model.layers, params, batch_stats):
         if isinstance(layer, ConvBlock):
             _fill_trainable(layer, p["conv"], s["conv"])
@@ -136,15 +144,15 @@ def trainable_from_numpy(plan: Plan, params, batch_stats, cfg: ModelConfig, *,
         elif isinstance(layer, TrainableHead):
             _fill_trainable(layer.conv1, p["conv1"], s["conv1"])
             _fill_trainable(layer.conv2, p["conv2"], None)
-    return model.to(device)
 
 
 def trainable_to_numpy(model: YOLOv3):
     """Inverse of :func:`trainable_from_numpy`: ``(params, batch_stats)``
-    trees in the JAX layout (HWIO), numpy float32."""
+    trees in the JAX layout (HWIO), numpy float32 copies."""
 
     def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
+        # a copy: .numpy() of a CPU f32 tensor would alias the live weights
+        return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
     def conv(block: ConvBlock):
         w = arr(block.conv.weight.permute(2, 3, 1, 0)).copy()  # OIHW -> HWIO

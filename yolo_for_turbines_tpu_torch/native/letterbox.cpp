@@ -19,29 +19,9 @@
 #include <thread>
 #include <vector>
 
+#include "bilinear.h"
+
 namespace {
-
-// Half-pixel-center bilinear coefficient table for one axis.
-struct AxisTab {
-  std::vector<int> i0, i1;
-  std::vector<float> w;  // weight of i1; (1 - w) of i0
-};
-
-AxisTab make_axis(int src, int dst) {
-  AxisTab t;
-  t.i0.resize(dst);
-  t.i1.resize(dst);
-  t.w.resize(dst);
-  const float s = static_cast<float>(src) / dst;
-  for (int x = 0; x < dst; ++x) {
-    float f = (x + 0.5f) * s - 0.5f;
-    f = std::max(0.0f, std::min(f, static_cast<float>(src - 1)));
-    t.i0[x] = static_cast<int>(f);
-    t.i1[x] = std::min(t.i0[x] + 1, src - 1);
-    t.w[x] = f - t.i0[x];
-  }
-  return t;
-}
 
 // Letterbox one HWC uint8 image into a float32 (size, size, 3) canvas.
 // Separable two-pass resize: horizontal u8->f32 (work sh*nw), then vertical

@@ -1,7 +1,7 @@
 """Where the device time of ``Predictor.predict_batch`` (or of the fused
-eval step) goes (``torch.profiler``).
+eval step, or of a train step) goes (``torch.profiler``).
 
-    python -m yolo_for_turbines_tpu_torch.tools.profile_serving [--batch 128] [--eval] [--out FILE]
+    python -m yolo_for_turbines_tpu_torch.tools.profile_serving [--batch N] [--eval | --train] [--out FILE]
 
 builds the 80-class Darknet-53 YOLOv3 at 416px from seeded random weights
 (as ``chip_smoke.py`` does), profiles ``predict_batch`` in bf16, then
@@ -9,10 +9,15 @@ quantizes it (int8 PTQ, calibrated on 8 seeded images) and profiles the int8
 path. With ``--eval`` it profiles instead the fused eval step
 (``train/evaluate.py::make_fused_eval_step``) of the trainable module from
 its seeded init, in bf16 autocast, on seeded noise images with empty target
-grids. Per path it prints one JSON line (wall ms per batch, device-busy ms
-per batch, the device's idle share) and the kernels with the most device
-time; ``--out`` also gets ``torch.profiler``'s full table. Needs a CUDA
-device.
+grids. With ``--train`` it profiles one train step
+(``train/steps.py::make_train_step``: forward, loss, backward and SGD
+update) of the 2-class Darknet-53 with mish, as ``train()`` builds it, in
+bf16 autocast at 416px, on seeded noise images with one box each. The
+batch is 128 for serving and eval and 32 for a train step unless
+``--batch`` says otherwise. Per path it prints one JSON line (wall ms per
+batch, device-busy ms per batch, the device's idle share) and the kernels
+with the most device time; ``--out`` also gets ``torch.profiler``'s full
+table. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -80,11 +85,44 @@ def profile_eval_step(model, x, targets, **kwargs):
     return profile_calls(lambda: step(x, targets, ANCHORS), x.device, **kwargs)
 
 
+def profile_train_step(trainer, x, targets, **kwargs):
+    """:func:`profile_calls` of the Trainer's train step (its config's
+    compute dtype) on ``(x, targets)``; each call updates a copy of the
+    trainer's state, which is left as it was."""
+    import copy
+
+    state = copy.deepcopy(trainer.state)
+    anchors = trainer._anchors(x.shape[1])
+    return profile_calls(lambda: trainer.train_step(state, x, targets, anchors), x.device,
+                         **kwargs)
+
+
+def train_batch(batch: int, size: int, device, strides=(32, 16, 8), classes: int = 2,
+                seed: int = 0):
+    """Seeded noise images and their targets (one random box per image,
+    ``assign_targets``), on ``device``."""
+    from ..config import TURBINE_ANCHORS, grid_sizes_for
+    from ..data.dataset import assign_targets
+
+    rng = np.random.default_rng(seed)
+    anchors = np.asarray(TURBINE_ANCHORS, np.float32).reshape(-1, 2)
+    x = rng.uniform(size=(batch, size, size, 3)).astype(np.float32)
+    per_image = [assign_targets([[*rng.uniform(0.2, 0.8, 2), *rng.uniform(0.05, 0.5, 2),
+                                  int(rng.integers(classes))]], anchors,
+                                grid_sizes_for(size, strides)) for _ in range(batch)]
+    targets = tuple(torch.from_numpy(np.stack([t[i] for t in per_image])).to(device)
+                    for i in range(len(strides)))
+    return torch.from_numpy(x).to(device), targets
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--eval", action="store_true",
-                    help="profile the fused eval step of the trainable module instead")
+    ap.add_argument("--batch", type=int, default=None)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--eval", action="store_true",
+                      help="profile the fused eval step of the trainable module instead")
+    mode.add_argument("--train", action="store_true",
+                      help="profile one bf16 train step of the 2-class mish model instead")
     ap.add_argument("--out", default=None, help="also write the profiler tables here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,6 +133,19 @@ def main(argv=None) -> int:
     from ..models.yolov3 import build_plan, init_plan
 
     dev = torch.device("cuda", 0)
+    batch = args.batch or (32 if args.train else 128)
+    if args.train:
+        from ..config import TrainConfig
+        from ..train.trainer import Trainer
+
+        trainer = Trainer(TrainConfig(batch_size=batch, warmup_enabled=False), device=dev)
+        x, targets = train_batch(batch, 416, dev)
+        summary, table = profile_train_step(trainer, x, targets)
+        print(json.dumps({"path": "train_bf16", "batch": batch, **summary}), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(f"== train step, bf16 autocast, B={batch}\n{table}")
+        return 0
     model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
     if args.eval:
         from ..config import grid_sizes_for
@@ -103,28 +154,28 @@ def main(argv=None) -> int:
         model = YOLOv3(model_cfg, generator=torch.Generator().manual_seed(0)).to(
             dev, memory_format=torch.channels_last)
         x = torch.from_numpy(np.random.default_rng(0).uniform(
-            size=(args.batch, 416, 416, 3)).astype(np.float32)).to(dev)
-        targets = [torch.zeros(args.batch, model_cfg.anchors_per_scale, s, s, 6, device=dev)
+            size=(batch, 416, 416, 3)).astype(np.float32)).to(dev)
+        targets = [torch.zeros(batch, model_cfg.anchors_per_scale, s, s, 6, device=dev)
                    for s in grid_sizes_for(416, model_cfg.strides)]
         summary, table = profile_eval_step(model, x, targets)
-        print(json.dumps({"path": "eval_bf16", "batch": args.batch, **summary}), flush=True)
+        print(json.dumps({"path": "eval_bf16", "batch": batch, **summary}), flush=True)
         if args.out:
             with open(args.out, "w") as f:
-                f.write(f"== eval step, bf16 autocast, B={args.batch}\n{table}")
+                f.write(f"== eval step, bf16 autocast, B={batch}\n{table}")
         return 0
     tree = init_plan(build_plan(model_cfg), torch.Generator().manual_seed(0))
     pred = Predictor.from_folded(model_cfg, tree, device=dev)
     size = pred.image_size
     x = torch.from_numpy(np.random.default_rng(0).uniform(
-        size=(args.batch, size, size, 3)).astype(np.float32)).to(dev)
+        size=(batch, size, size, 3)).astype(np.float32)).to(dev)
     calib = np.random.default_rng(1).uniform(size=(8, size, size, 3)).astype(np.float32)
     tables = []
     for path in ("bf16", "int8"):
         if path == "int8":
             pred.quantize(calib)
         summary, table = profile_predict_batch(pred, x)
-        print(json.dumps({"path": path, "batch": args.batch, **summary}), flush=True)
-        tables.append(f"== {path}, B={args.batch}\n{table}")
+        print(json.dumps({"path": path, "batch": batch, **summary}), flush=True)
+        tables.append(f"== {path}, B={batch}\n{table}")
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(tables))

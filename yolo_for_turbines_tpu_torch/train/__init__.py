@@ -1,1 +1,2 @@
-"""The loss and the eval stack of the trainable model."""
+"""The loss, the eval stack, the SGD steps and the training loop of the
+trainable model."""

@@ -1,0 +1,193 @@
+"""The optimizer, the lr schedule and the train and eval steps
+(counterpart of ``yolo_for_turbines_tpu/train/steps.py``).
+
+- Optimizer: ``torch.optim.SGD(momentum=, weight_decay=)`` over every
+  trainable parameter, BN scale and bias and the heads' conv bias
+  included: optax's ``add_decayed_weights`` decays every params leaf.
+  torch adds the decay to the gradient before the momentum buffer, as
+  ``chain(add_decayed_weights, sgd(momentum))`` does, and starts the buffer
+  at the first gradient, which is what optax's zero-initialised trace gives.
+- Schedule: :func:`scheduled_lr`, linear warmup from 1e-6 * lr over
+  ``max(1, int(max_num_steps * warmup))`` steps, then constant, or a cosine
+  decay to 0 at ``max_num_steps`` when ``decay_lr`` (only while warmup is
+  on). It runs on the host for the step before the increment and is
+  written into the param groups; ``TrainState.hyper`` holds its numbers.
+- Freeze: a frozen parameter stays out of the optimizer and stops
+  requiring a gradient, so its update is exactly 0, weight decay included
+  (the JAX package masks the final update). Running statistics of frozen
+  BN layers still update in train mode, as in JAX.
+- Precision: ``compute_dtype`` bfloat16 runs the f32 module's forward under
+  ``torch.autocast`` with an f32 loss and no GradScaler (bf16 has f32's
+  exponent range); float32 runs forward and backward with TF32 off
+  (``models/blocks.py::full_f32``).
+
+Data parallelism (the JAX step's ``mesh`` argument) waits for the port's
+parallel slice; these steps run on the device of the module.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Iterable
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..config import TrainConfig
+from ..models.blocks import full_f32
+from .evaluate import _forward
+from .loss import total_yolo_loss
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """``TrainConfig.compute_dtype`` as a torch dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {name!r}")
+    return _DTYPES[name]
+
+
+def hyper_from_config(cfg: TrainConfig) -> Dict[str, float]:
+    """The schedule's numbers: peak lr, warmup steps (0 with warmup off),
+    total steps, and 1.0 for a cosine decay (only while warmup is on)."""
+    warmup_steps = max(1, int(cfg.max_num_steps * cfg.warmup)) if cfg.warmup_enabled else 0
+    return {
+        "lr": float(cfg.lr),
+        "warmup_steps": float(warmup_steps),
+        "total_steps": float(cfg.max_num_steps),
+        "use_cosine": 1.0 if (cfg.decay_lr and cfg.warmup_enabled) else 0.0,
+    }
+
+
+def scheduled_lr(step: int, hyper: Dict[str, float]) -> float:
+    """The lr at ``step``: warmup, then constant or cosine decay. float32
+    arithmetic in the JAX function's operation order."""
+    f32 = np.float32
+    stepf = f32(step)
+    lr_peak, ws = f32(hyper["lr"]), f32(hyper["warmup_steps"])
+    frac = np.minimum(stepf / np.maximum(ws, f32(1.0)), f32(1.0))
+    lr_warm = lr_peak * (f32(1e-6) + f32(1.0 - 1e-6) * frac)
+    t = np.clip((stepf - ws) / np.maximum(f32(hyper["total_steps"]) - ws, f32(1.0)),
+                f32(0.0), f32(1.0))
+    lr_cos = lr_peak * f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * t))
+    lr_after = lr_cos if hyper["use_cosine"] > 0 else lr_peak
+    return float(lr_warm if stepf < ws else lr_after)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module, its SGD optimizer, the count of steps taken and the
+    schedule's numbers (``hyper_from_config``)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+    hyper: Dict[str, float]
+
+    def snapshot(self) -> dict:
+        """A host copy: the module's ``state_dict`` (running statistics
+        included), the optimizer's (momentum buffers), step and hyper, every
+        tensor copied to the CPU."""
+        return {"model": _host(self.model.state_dict()),
+                "optimizer": _host(self.optimizer.state_dict()),
+                "step": int(self.step), "hyper": dict(self.hyper)}
+
+
+def _host(obj):
+    """``obj`` with every tensor copied to the CPU (containers rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v) for v in obj)
+    return obj
+
+
+def freeze_parameters(model: nn.Module, names: Iterable[str]) -> None:
+    """Stop the named parameters (``model.named_parameters()`` names) from
+    requiring a gradient."""
+    names = set(names)
+    params = dict(model.named_parameters())
+    unknown = names - params.keys()
+    if unknown:
+        raise ValueError(f"no such parameters: {sorted(unknown)}")
+    for name in names:
+        params[name].requires_grad_(False)
+
+
+def create_train_state(model: nn.Module, cfg: TrainConfig, frozen: Iterable[str] = ()) -> TrainState:
+    """Freeze ``frozen``, then SGD over every parameter left trainable."""
+    freeze_parameters(model, frozen)
+    hyper = hyper_from_config(cfg)
+    optimizer = torch.optim.SGD(
+        [p for p in model.parameters() if p.requires_grad], lr=scheduled_lr(0, hyper),
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    return TrainState(model, optimizer, 0, hyper)
+
+
+def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, images: torch.Tensor,
+               targets, scaled_anchors, compute_dtype: torch.dtype = torch.bfloat16):
+    """One SGD step in train mode at the lr in the optimizer's param groups.
+
+    ``images`` (B, S, S, 3) and ``targets`` (3 tensors (B, A, S, S, 6),
+    coarsest first) on the module's device; ``scaled_anchors`` (3, A, 2) in
+    cell units. Returns the loss terms and "loss" as detached device
+    tensors (no host sync)."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    f32 = compute_dtype == torch.float32
+    with full_f32() if f32 else contextlib.nullcontext():
+        with contextlib.nullcontext() if f32 else torch.autocast(images.device.type,
+                                                                 dtype=compute_dtype):
+            total, comps = total_yolo_loss(model(images), targets, scaled_anchors)
+        total.backward()
+    optimizer.step()
+    metrics = {k: v.detach() for k, v in comps.items()}
+    metrics["loss"] = total.detach()
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model: nn.Module, images: torch.Tensor, targets, scaled_anchors,
+              compute_dtype: torch.dtype = torch.bfloat16):
+    """Forward and loss in eval mode, no gradients (the module's mode is
+    restored after it): the loss terms and "loss" as device tensors."""
+    total, comps = total_yolo_loss(_forward(model, images, compute_dtype), targets,
+                                   scaled_anchors)
+    metrics = dict(comps)
+    metrics["loss"] = total
+    return metrics
+
+
+def make_train_step(cfg: TrainConfig):
+    """fn(state, images, targets, scaled_anchors) -> metrics: writes the lr
+    of ``state.step`` into the param groups, takes one :func:`train_step`
+    in ``cfg.compute_dtype`` and counts it."""
+    dtype = compute_dtype_of(cfg.compute_dtype)
+
+    def step(state: TrainState, images, targets, scaled_anchors):
+        lr = scheduled_lr(state.step, state.hyper)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        metrics = train_step(state.model, state.optimizer, images, targets, scaled_anchors,
+                             dtype)
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_eval_step(cfg: TrainConfig):
+    """fn(state, images, targets, scaled_anchors) -> metrics: :func:`eval_step`
+    in ``cfg.compute_dtype``."""
+    dtype = compute_dtype_of(cfg.compute_dtype)
+
+    def step(state: TrainState, images, targets, scaled_anchors):
+        return eval_step(state.model, images, targets, scaled_anchors, dtype)
+
+    return step
