@@ -72,7 +72,8 @@ Phases, one JSON line each:
           one float32 train step on the card (TF32 on around it, so the
           step's own switch must turn it off) against the port's float32 CPU
           step from the same weights at B = 2, 416px (loss terms, every
-          parameter's update, running statistics); 20 bf16 autocast steps of
+          parameter's update, running statistics; beside them the loss
+          terms with TF32 left on and in float64); 20 bf16 autocast steps of
           the Trainer at B = 32 on one fixed batch at 416 and at 608px after
           prewarm (finite, the loss falling; step time, images/s, peak
           memory; at 416 the torch.profiler idle share of one step); the
@@ -84,6 +85,28 @@ Phases, one JSON line each:
           with train, val and mAP rows, its checkpoint back on the card bit
           for bit, and that state's epoch-9 eval with device mAP equal to
           host calc_map.
+  families  CSPDarknet-53 and YOLOv3-tiny at full width, 416px: the
+          80-class CSPDarknet-53 from a seeded trainable model with
+          calibrated BN statistics, folded, served in bf16 (predict_images,
+          predict_image, predict_batch at B = 8 and 128; raw heads in bf16
+          and in float32 against the f32 CPU forward, with cuDNN pinned,
+          and each concat swapped alone as the control) and in int8
+          (calibrated on 8 seeded images, B = 128; s8 trunk codes and heads
+          against the int8 CPU forward, main_int8's gates); the 80-class
+          tiny written by export_darknet_weights from a seeded trainable
+          model with calibrated BN statistics (8,858,734 floats, the
+          official file's count), served by load_predictor in bf16 at B =
+          1, 8 and 128 and in int8 at B = 128, with the same gates; K1
+          exactly once and K2 and K4 never per predict_batch of either
+          family. The 2-class mish CSPDarknet-53 trained: the f32 card step
+          against the CPU step at B = 2 (train's gates, loss terms 5e-5;
+          the terms with TF32 on must read above that),
+          20 bf16 Trainer steps at B = 32 (ms, images/s, peak memory, the
+          torch.profiler summary of one step), a fused eval step
+          (K1 once), its checkpoint served by load_predictor_from_checkpoint
+          with the detections of Predictor.from_folded on its fold(); one
+          bf16 tiny train step and eval step at B = 32 (losses finite, K1
+          once).
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -1137,22 +1160,35 @@ def leaf_rel_rms(got: dict, want: dict):
     return worst
 
 
-def train_f32_check(dev, model_cfg, out):
+def train_f32_check(dev, model_cfg, out, loss_rtol=TRAIN_LOSS_RTOL):
     """One float32 train step on the card (TF32 on around it: the step must
     turn it off) against the port's float32 CPU step from the same weights,
-    B = 2, 416px."""
+    B = 2, 416px. Beside it, the loss terms of the same train-mode forward
+    on the card with TF32 left on (the control: what the loss gate must
+    see) and in float64 (how far each f32 step is from exact)."""
     import copy
 
     from yolo_for_turbines_tpu_torch import config as cfg
     from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3
     from yolo_for_turbines_tpu_torch.tools.profile_serving import train_batch
     from yolo_for_turbines_tpu_torch.train import steps
+    from yolo_for_turbines_tpu_torch.train.loss import total_yolo_loss
 
     tc = cfg.TrainConfig(lr=1e-2, warmup_enabled=False, compute_dtype="float32")
     base = YOLOv3(model_cfg, generator=torch.Generator().manual_seed(SEED + 7))
     anchors = torch.from_numpy(cfg.scaled_anchors_array(cfg.TURBINE_ANCHORS, 416))
     x, targets = train_batch(2, 416, "cpu", seed=SEED + 8)
     before = {k: v.clone() for k, v in base.state_dict().items()}
+    def forward_terms(dtype, ctx):
+        probe = copy.deepcopy(base).to(dev, dtype, memory_format=torch.channels_last).train()
+        with torch.no_grad(), ctx:
+            total, comps = total_yolo_loss(probe(x.to(dev, dtype)),
+                                           tuple(t.to(dev, dtype) for t in targets),
+                                           anchors.to(dev, dtype))
+        return {**{k: float(v) for k, v in comps.items()}, "loss": float(total)}
+
+    tf32_terms = forward_terms(torch.float32, tf32_on())
+    f64_terms = forward_terms(torch.float64, contextlib.nullcontext())
     results = {}
     for where in ("card", "cpu"):
         model = copy.deepcopy(base)
@@ -1180,7 +1216,13 @@ def train_f32_check(dev, model_cfg, out):
     out["f32_update_rel_rms_all"] = rel_rms(torch.cat([v.flatten() for v in upd.values()]),
                                             torch.cat([upd_h[k].flatten() for k in upd]))
     out["f32_stats_rel_rms_worst"] = leaf_rel_rms(stats, {k: s_h[k] for k in stats})
-    return (max(out["f32_loss_rel_err"].values()) <= TRAIN_LOSS_RTOL
+    def rel(got, want):
+        return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+    out["tf32_control_loss_rel_err"] = rel(tf32_terms, m_h)
+    out["f64_witness_loss_rel_err"] = {"card_f32": rel(m_d, f64_terms),
+                                       "cpu_f32": rel(m_h, f64_terms)}
+    return (max(out["f32_loss_rel_err"].values()) <= loss_rtol
             and out["f32_update_rel_rms_worst"][0] <= TRAIN_UPDATE_RTOL
             and out["f32_stats_rel_rms_worst"][0] <= TRAIN_STATS_RTOL
             and min(float(v.abs().max()) for v in upd.values()) > 0)
@@ -1351,6 +1393,358 @@ def phase_train(dev):
     return launches
 
 
+# families phase: CSPDarknet-53 and YOLOv3-tiny at 80 classes, 416px
+TINY_FLOATS = 8_858_734  # floats of the official yolov3-tiny.weights (80 classes)
+# Both families serve weights with calibrated BN statistics (eval_model), so
+# that the trunk reaches the heads: with init_plan's weights the CSP heads
+# are their biases. bf16 rounding then grows with depth through the
+# normalized layers. Per head, relative RMS against the f32 CPU forward of
+# the same tree, cuDNN pinned (an H100):
+# - bf16: tiny (13 layers) 0.0403 and 0.0347, under HEAD_RTOL; CSP (92
+#   layers) 0.41-0.47. CSP's bf16 gate sits between that and its control:
+#   one CSP stage's or upsample's concat swapped reads 0.91-0.99 in its
+#   worst head (tiny's one concat: 0.96).
+# - float32 (TF32 off): CSP 5.8e-5 to 1.1e-4, tiny 4.7e-6 and 5.8e-6, where
+#   the same controls read 0.9: the gate that sees a fault in the card's
+#   forward of the families.
+CSP_BF16_HEAD_RTOL = 0.65
+FAMILY_F32_HEAD_RTOL = 1e-3
+# The CSP f32 card step against the CPU step: train's gates, but loss terms
+# 5e-5. Measured 1.12e-5 in class_loss, most of it the CPU's own rounding:
+# against a float64 forward on the card the card's f32 terms are off by
+# 4.5e-6 at most, the CPU's by 9.9e-6. The control, the same forward with
+# TF32 left on, reads 1.8e-2 to 2.2e-2 in its worst term (obj_loss;
+# no_obj_loss, a mean over every cell, moves 4.4e-5 to 5.1e-5; it varies
+# between calls). Its worst update (1.6e-4) and
+# statistics (3.5e-6) keep Darknet-53's gates (an H100).
+CSP_TRAIN_LOSS_RTOL = 5e-5
+FAMILIES_DIR = TRAIN_DIR / "families"
+FAMILIES_SIZE = 416
+
+
+def kernel_counts():
+    """K1, K2 and K4 launch counts so far."""
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        nms_kernel,
+        resblock_int8_kernel,
+        resblock_kernel,
+    )
+
+    return {"greedy_nms": nms_kernel.launches, "fused_residual_stage": resblock_kernel.launches,
+            "fused_residual_stage_int8": resblock_int8_kernel.launches}
+
+
+def zero_counts() -> None:
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        iou_kernel,
+        nms_kernel,
+        resblock_int8_kernel,
+        resblock_kernel,
+    )
+
+    for k in (nms_kernel, resblock_kernel, resblock_int8_kernel, iou_kernel):
+        k.launches = 0
+
+
+def family_path(pred, images, batches, out):
+    """One family's serving path: the launches of one predict_batch (K1
+    once, K2 and K4 never: no CSP or tiny stage is routed to them, as in the
+    JAX package), then the user's entry points timed by ``drive``."""
+    x = next(iter(batches.values()))
+    zero_counts()
+    pred.predict_batch(x)
+    torch.cuda.synchronize()
+    out["launches_per_predict_batch"] = kernel_counts()
+    zero_counts()
+    drive(pred, images, batches, out)
+    out["launches"] = kernel_counts()
+    return out["launches_per_predict_batch"] == {"greedy_nms": 1, "fused_residual_stage": 0,
+                                                  "fused_residual_stage_int8": 0}
+
+
+@contextlib.contextmanager
+def pinned_cudnn():
+    """cuDNN's heuristic, deterministic algorithms, restored afterwards: a
+    gate's reading must not follow what benchmark mode (which the Trainer
+    turns on for the process) picked in this run."""
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+
+def swapped_concat(plan, tree, at: int):
+    """``tree`` as a model reads it whose concat at plan entry ``at`` takes
+    its two inputs the other way round: a CSP ``fuse`` [shortcut,
+    transition], the layer after an upsample [route, upsampled]. The head
+    gates' control: what one concat-order fault reads."""
+    import copy
+
+    from yolo_for_turbines_tpu_torch.models.cspdarknet import PlanCSP
+
+    out = copy.deepcopy(tree)
+    entry = plan[at]
+    if isinstance(entry, PlanCSP):  # two halves of branch_ch
+        p, shift = out[at]["fuse"], entry.branch_ch
+    else:  # an upsample: the next layer reads [upsampled, route]
+        p = out[at + 1].get("conv") or out[at + 1]["conv1"]
+        shift = entry.in_ch - np.asarray(p["w"]).shape[2]
+    # HWIO: input channel i takes the weights of channel i - shift
+    p["w"] = np.roll(np.asarray(p["w"]), shift, axis=2)
+    return out
+
+
+def heads_gate(pred, tree, x1, out, bf16_rtol) -> bool:
+    """The raw heads of the bf16 predictor ``pred`` and of a float32 one
+    from the same folded tree, on the card with cuDNN pinned, against the
+    f32 CPU forward: relative RMS per head, at most ``bf16_rtol`` and
+    FAMILY_F32_HEAD_RTOL. The control: each concat of the plan swapped
+    alone (CPU) must read above ``bf16_rtol`` in some head, or the gates
+    could not see it."""
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.models.cspdarknet import PlanCSP
+    from yolo_for_turbines_tpu_torch.models.yolov3 import PlanUpsample
+
+    model_cfg, plan = pred.model.cfg, pred.model.plan
+    f32 = Predictor.from_folded(model_cfg, tree, device=pred.device, image_size=pred.image_size,
+                                compute_dtype=torch.float32)
+
+    def cpu(t):
+        return folded_from_numpy(plan, t, model_cfg).eval()(x1.cpu())
+
+    with torch.inference_mode():
+        with pinned_cudnn():
+            dev_heads, f32_heads = pred.raw_heads(x1), f32.raw_heads(x1)
+        want = cpu(tree)
+        controls = {i: cpu(swapped_concat(plan, tree, i)) for i, e in enumerate(plan)
+                    if isinstance(e, (PlanCSP, PlanUpsample))}
+    out["head_rtol"], out["f32_head_rtol"] = bf16_rtol, FAMILY_F32_HEAD_RTOL
+    out["head_rel_rms_err"] = [rel_rms(d.float(), c) for d, c in zip(dev_heads, want)]
+    out["f32_head_rel_rms_err"] = [rel_rms(d, c) for d, c in zip(f32_heads, want)]
+    out["control_swapped_concat_worst_head"] = {
+        f"{i}:{type(plan[i]).__name__}": max(rel_rms(c, w) for c, w in zip(heads, want))
+        for i, heads in controls.items()}
+    return (all(bool(torch.isfinite(d).all()) for d in dev_heads)
+            and max(out["head_rel_rms_err"]) <= bf16_rtol
+            and max(out["f32_head_rel_rms_err"]) <= FAMILY_F32_HEAD_RTOL
+            and min(out["control_swapped_concat_worst_head"].values()) > bf16_rtol)
+
+
+def int8_gate(pred, plan, x1, out) -> bool:
+    """The int8 forward on the card against the port's int8 CPU forward of
+    the same qparams: the s8 trunk codes each head reads (main_int8's gate)
+    and the raw heads (cosine)."""
+    from yolo_for_turbines_tpu_torch.models.convert import qparams_from_numpy
+    from yolo_for_turbines_tpu_torch.models.quantize import apply_inference_int8
+
+    kw = {"activation": pred.model.cfg.activation, "raw_heads": True}
+    dev_trunk, cpu_trunk = [], []
+    with torch.inference_mode():
+        dev_heads = apply_inference_int8(plan, pred._qparams, x1, compute_dtype=pred.compute_dtype,
+                                         packed=pred._packed, head_inputs=dev_trunk, **kw)
+        cpu_heads = apply_inference_int8(plan, qparams_from_numpy(plan, pred._qparams, "cpu"),
+                                         x1.cpu(), compute_dtype=torch.float32,
+                                         head_inputs=cpu_trunk, **kw)
+    out["trunk_codes_frac_differing"] = [
+        float((d.cpu() != c).float().mean()) for dt, ct in zip(dev_trunk, cpu_trunk)
+        for d, c in zip(dt, ct)]
+    out["head_cos_card_vs_cpu_int8"] = [cosine(d.float().cpu(), c)
+                                        for d, c in zip(dev_heads, cpu_heads)]
+    return (len(dev_trunk) == len(pred.model.strides)
+            and max(out["trunk_codes_frac_differing"]) <= INT8_TRUNK_MAX_FRAC
+            and min(out["head_cos_card_vs_cpu_int8"]) > INT8_HEAD_COS)
+
+
+def family_inputs(dev, sizes):
+    rng = np.random.default_rng(SEED + 20)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((480, 640), (300, 500), (416, 416), (720, 400))]
+    n = FAMILIES_SIZE
+    batches = {b: torch.from_numpy(rng.uniform(size=(b, n, n, 3)).astype(np.float32)).to(dev)
+               for b in sizes}
+    calib = rng.uniform(size=(8, n, n, 3)).astype(np.float32)
+    return images, batches, calib
+
+
+def families_csp_serving(dev, ok):
+    """CSPDarknet-53, 80 classes, a seeded trainable model with calibrated
+    BN statistics, folded: bf16 at B = 8 and 128, int8 at B = 128."""
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan
+
+    model_cfg = ModelConfig(backbone="cspdarknet53")
+    plan = build_plan(model_cfg)
+    # calibrated BN statistics, as tiny's (see the head gates' readings)
+    trainable = eval_model(dev, model_cfg, FAMILIES_SIZE)
+    tree = trainable.eval().fold()
+    del trainable
+    images, batches, calib = family_inputs(dev, (8, 128))
+    x1 = batches[8][:1]
+    out = {"phase": "families", "model": f"cspdarknet53 yolov3, 80 classes, {FAMILIES_SIZE}px, bf16"}
+    pred = Predictor.from_folded(model_cfg, tree, device=dev, image_size=FAMILIES_SIZE)
+    ok["csp_bf16_launches"] = family_path(pred, images, batches, out)
+    ok["csp_heads"] = heads_gate(pred, tree, x1, out, CSP_BF16_HEAD_RTOL)
+    emit(out)
+    out8 = {"phase": "families", "model": f"cspdarknet53 yolov3, 80 classes, {FAMILIES_SIZE}px, "
+            "int8 PTQ (bf16 heads)", "calibration_images": len(calib)}
+    pred.quantize(calib)
+    ok["csp_int8_launches"] = family_path(pred, images, {128: batches[128]}, out8)
+    ok["csp_int8_vs_cpu"] = int8_gate(pred, plan, x1, out8)
+    emit(out8)
+    return {"families_csp_bf16": out["launches"], "families_csp_int8": out8["launches"]}
+
+
+def families_tiny_serving(dev, ok):
+    """YOLOv3-tiny, 80 classes: a darknet file written by the port from a
+    seeded trainable model with calibrated BN statistics, served by
+    load_predictor in bf16 at B = 1, 8 and 128 and in int8 at B = 128."""
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.inference import load_predictor
+    from yolo_for_turbines_tpu_torch.models.convert import trainable_to_numpy
+    from yolo_for_turbines_tpu_torch.models.darknet_weights import export_darknet_weights
+
+    model_cfg = cfg.ModelConfig(backbone="yolov3_tiny", strides=(32, 16))
+    trainable = eval_model(dev, model_cfg, FAMILIES_SIZE)
+    path = FAMILIES_DIR / "yolov3-tiny.weights"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    export_darknet_weights(trainable.plan, *trainable_to_numpy(trainable), str(path))
+    floats = (path.stat().st_size - 20) // 4
+    pred = load_predictor(path, backbone="yolov3_tiny", anchors=cfg.TINY_ANCHORS,
+                          image_size=FAMILIES_SIZE, device=dev)
+    images, batches, calib = family_inputs(dev, (1, 8, 128))
+    x1 = batches[8][:1]
+    out = {"phase": "families", "model": f"yolov3_tiny, 80 classes, {FAMILIES_SIZE}px, bf16, "
+           "load_predictor of a port-written darknet file", "weight_file_floats": floats,
+           "candidates_per_image": 3 * ((FAMILIES_SIZE // 32) ** 2 + (FAMILIES_SIZE // 16) ** 2)}
+    ok["tiny_file_floats"] = floats == TINY_FLOATS
+    ok["tiny_bf16_launches"] = family_path(pred, images, batches, out)
+    ok["tiny_heads"] = heads_gate(pred, pred._folded_input, x1, out, HEAD_RTOL)
+    emit(out)
+    out8 = {"phase": "families", "model": f"yolov3_tiny, 80 classes, {FAMILIES_SIZE}px, int8 PTQ "
+            "(bf16 heads)", "calibration_images": len(calib)}
+    pred.quantize(calib)
+    ok["tiny_int8_launches"] = family_path(pred, images, {128: batches[128]}, out8)
+    ok["tiny_int8_vs_cpu"] = int8_gate(pred, pred.model.plan, x1, out8)
+    emit(out8)
+    return {"families_tiny_bf16": out["launches"], "families_tiny_int8": out8["launches"]}
+
+
+def families_training(dev, ok):
+    """CSPDarknet-53, 2 classes, mish: the f32 card step against the CPU
+    step, bf16 Trainer steps at B = 32 (times, peak memory, the profile of
+    one step), a fused eval
+    step, the trained state's checkpoint served by
+    load_predictor_from_checkpoint; one bf16 tiny train step and eval step."""
+    import copy
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.inference import Predictor, load_predictor_from_checkpoint
+    from yolo_for_turbines_tpu_torch.tools.profile_serving import profile_train_step, train_batch
+    from yolo_for_turbines_tpu_torch.train.checkpoint import save_checkpoint
+    from yolo_for_turbines_tpu_torch.train.evaluate import make_fused_eval_step
+    from yolo_for_turbines_tpu_torch.train.trainer import Trainer
+
+    csp_cfg = cfg.ModelConfig(num_classes=cfg.NUM_TURBINE_CLASSES, activation="mish",
+                              backbone="cspdarknet53")
+    out = {"phase": "families", "model": "cspdarknet53 yolov3, 2 classes, mish, trainable; "
+           "yolov3_tiny, 2 classes, mish",
+           "loss_rtol": CSP_TRAIN_LOSS_RTOL, "update_rtol": TRAIN_UPDATE_RTOL,
+           "stats_rtol": TRAIN_STATS_RTOL}
+    ok["csp_f32_card_vs_cpu"] = train_f32_check(dev, csp_cfg, out, CSP_TRAIN_LOSS_RTOL)
+    ok["csp_tf32_control_above_loss_gate"] = (max(out["tf32_control_loss_rel_err"].values())
+                                              > CSP_TRAIN_LOSS_RTOL)
+
+    batch, size = 32, FAMILIES_SIZE
+    tc = cfg.TrainConfig(batch_size=batch, warmup_enabled=False)
+    trainer = Trainer(tc, csp_cfg, device=dev)
+    t0 = time.perf_counter()
+    trainer.prewarm(sizes=(size,))
+    out[f"prewarm_{size}_s"] = time.perf_counter() - t0
+    x, targets = train_batch(batch, size, dev, seed=SEED + 22)
+    anchors = trainer._anchors(size)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.train_step(trainer.state, x, targets, anchors)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    losses = torch.stack(losses).tolist()
+    out[f"bf16_B32_{size}"] = {"step_ms": ms, "images_per_s": batch * 1e3 / ms,
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "loss_first": losses[0], "loss_last": losses[-1]}
+    ok["csp_bf16_steps_finite"] = all(np.isfinite(losses))
+    out["profile_bf16_B32"], _ = profile_train_step(trainer, x, targets, iters=3, warmup=2, top=8)
+
+    # one fused eval step (bf16): K1 once
+    zero_counts()
+    make_fused_eval_step(trainer.model)(x[:8], [t[:8] for t in targets], cfg.TURBINE_ANCHORS)
+    torch.cuda.synchronize()
+    out["eval_step_launches"] = kernel_counts()
+
+    # the trained state through a checkpoint, served
+    ckpt = FAMILIES_DIR / "csp.ckpt"
+    save_checkpoint(trainer.state, ckpt)
+    zero_counts()
+    loaded = load_predictor_from_checkpoint(ckpt, backbone="cspdarknet53", image_size=size,
+                                            device=dev)
+    # folded on the CPU, as the loader folds
+    host = copy.deepcopy(trainer.model).to("cpu", memory_format=torch.contiguous_format)
+    want = Predictor.from_folded(csp_cfg, host.eval().fold(), device=dev, image_size=size,
+                                 anchors=cfg.TURBINE_ANCHORS)
+    (kl, ml), (kw, mw) = loaded.predict_batch(x[:8]), want.predict_batch(x[:8])
+    torch.cuda.synchronize()
+    out["checkpoint_predictor_launches"] = kernel_counts()
+    out["checkpoint_predictor_survivors"] = int(ml.sum())
+    ok["csp_checkpoint_predictor_equal"] = bool(torch.equal(kl, kw) and torch.equal(ml, mw))
+    del trainer, loaded, want, host
+    torch.cuda.empty_cache()
+
+    # tiny: one bf16 train step and one eval step at B = 32
+    tiny_cfg = cfg.ModelConfig(num_classes=cfg.NUM_TURBINE_CLASSES, activation="mish",
+                               backbone="yolov3_tiny", strides=(32, 16))
+    tiny = Trainer(tc, tiny_cfg, anchors=cfg.TINY_ANCHORS, device=dev)
+    x, targets = train_batch(batch, size, dev, strides=(32, 16), seed=SEED + 23,
+                             anchors=cfg.TINY_ANCHORS)
+    metrics = tiny.train_step(tiny.state, x, targets, tiny._anchors(size))
+    out["tiny_bf16_B32_losses"] = {k: float(v) for k, v in metrics.items()}
+    ok["tiny_bf16_step_finite"] = all(np.isfinite(list(out["tiny_bf16_B32_losses"].values())))
+    zero_counts()
+    make_fused_eval_step(tiny.model)(x, targets, cfg.TINY_ANCHORS)
+    torch.cuda.synchronize()
+    out["tiny_eval_step_launches"] = kernel_counts()
+    one_k1 = {"greedy_nms": 1, "fused_residual_stage": 0, "fused_residual_stage_int8": 0}
+    ok["eval_steps_launch_k1_once"] = (out["eval_step_launches"] == one_k1
+                                       and out["tiny_eval_step_launches"] == one_k1)
+    emit(out)
+    return {"families_csp_eval": out["eval_step_launches"],
+            "families_csp_checkpoint_predictors": out["checkpoint_predictor_launches"],
+            "families_tiny_eval": out["tiny_eval_step_launches"]}
+
+
+def phase_families(dev):
+    """CSPDarknet-53 and YOLOv3-tiny served, evaluated and trained at full
+    width. Returns the launch counts of each path (K1, K2, K4)."""
+    import shutil
+
+    ok = {}
+    shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        paths = {**families_csp_serving(dev, ok), **families_tiny_serving(dev, ok)}
+        paths.update(families_training(dev, ok))
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    emit({"phase": "families", "ok": ok, "seconds": time.perf_counter() - t0})
+    require(all(ok.values()), f"families phase failed: {ok}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1380,9 +1774,11 @@ def main() -> int:
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)
     launches_train = phase_train(dev)
+    families = phase_families(dev)
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
                    "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
-                   "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"]}
+                   "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"],
+                   **{k: v["greedy_nms"] for k, v in families.items()}}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
                    "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"],
                    "train": launches_train["pairwise_iou"]}
@@ -1400,7 +1796,9 @@ def main() -> int:
                               "main_f32": launches_f32["fused_residual_stage"],
                               "eval": launches_eval["fused_residual_stage"],
                               "eval_fold": launches_fold["fused_residual_stage"],
-                              "train": launches_train["fused_residual_stage"]}, **k2},
+                              "train": launches_train["fused_residual_stage"],
+                              **{k: v["fused_residual_stage"] for k, v in families.items()}},
+         **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/iou.cu",
@@ -1410,7 +1808,10 @@ def main() -> int:
         {"name": "fused_residual_stage_int8", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/resblock_int8.cu",
          "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_int8_kernel.py:95",
-         "launches": launches_int8["fused_residual_stage_int8"], **k4},
+         "launches": launches_int8["fused_residual_stage_int8"],
+         "launches_by_path": {"main_int8": launches_int8["fused_residual_stage_int8"],
+                              **{k: v["fused_residual_stage_int8"] for k, v in families.items()}},
+         **k4},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

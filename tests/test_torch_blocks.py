@@ -130,11 +130,3 @@ def test_full_plan_matches_jax():
     assert build_plan(ModelConfig(layer_config=MINI_LAYERS)) == tuple(
         _as_port_plan(mini_model(num_classes=80).plan)
     )
-
-
-@pytest.mark.parametrize("backbone", ["cspdarknet53", "yolov3_tiny"])
-def test_other_families_raise(backbone):
-    from yolo_for_turbines_tpu_torch.config import ModelConfig
-
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_plan(ModelConfig(backbone=backbone))

@@ -1,4 +1,5 @@
-"""Torch port: importing it, serving with it (folded and int8), evaluating
+"""Torch port: importing it, serving with it (folded and int8; Darknet-53,
+CSPDarknet-53 and tiny; from a darknet file and a checkpoint), evaluating
 with it (``evaluate_map_device`` of the trainable module) and training with
 it (``train()``, the data layer, the darknet loader, the CLI module) imports
 neither jax nor any module of the JAX package (yolo_for_turbines_tpu).
@@ -48,6 +49,20 @@ pred.quantize(x)  # the int8 path: calibrate, quantize, serve
 kept, mask = pred.predict_batch(x)
 assert tuple(kept.shape) == (2, 8, 6) and bool(torch.isfinite(kept).all())
 assert len(pred.predict_images(images)) == 1
+# the CSPDarknet-53 and tiny families, bf16 and int8
+from helpers import MINI_CSP_LAYERS
+from yolo_for_turbines_tpu_torch.config import TINY_ANCHORS
+for fam_cfg, anchors in ((ModelConfig(num_classes=2, layer_config=MINI_CSP_LAYERS), ANCHORS),
+                         (ModelConfig(num_classes=2, backbone="yolov3_tiny", strides=(32, 16)),
+                          TINY_ANCHORS)):
+    tree = init_plan(build_plan(fam_cfg), torch.Generator().manual_seed(1))
+    fam = inference.Predictor.from_folded(fam_cfg, tree, device="cpu", anchors=anchors,
+                                          image_size=64, max_boxes=8,
+                                          compute_dtype=torch.bfloat16)
+    assert bool(torch.isfinite(fam.predict_batch(x)[0]).all())
+    assert len(fam.predict_images(images)) == 1
+    fam.quantize(x)
+    assert bool(torch.isfinite(fam.predict_batch(x)[0]).all())
 iou = iou_kernel.pairwise_iou(torch.rand(5, 4))
 assert tuple(iou.shape) == (5, 5)
 # one eval of the trainable module on the CPU
@@ -59,6 +74,28 @@ m = evaluate_map_device([(x, targets)], trainable, ANCHORS, num_classes=2,
                         compute_dtype=torch.float32)
 assert 0.0 <= m <= 1.0
 assert map_ops.calc_map([], [[0, 0.5, 0.5, 0.1, 0.1, 1, 0]], num_classes=2) == 0.0
+# the two loaders: a tiny darknet file the port writes, and a checkpoint
+import tempfile
+from pathlib import Path
+from yolo_for_turbines_tpu_torch.models import darknet_weights
+from yolo_for_turbines_tpu_torch.models.convert import trainable_to_numpy
+from yolo_for_turbines_tpu_torch.train.checkpoint import save_checkpoint
+from yolo_for_turbines_tpu_torch.train.steps import create_train_state
+from yolo_for_turbines_tpu_torch.config import TrainConfig
+tiny_cfg = ModelConfig(num_classes=2, backbone="yolov3_tiny", strides=(32, 16))
+tiny = YOLOv3(tiny_cfg, generator=torch.Generator().manual_seed(2))
+with tempfile.TemporaryDirectory() as tmp:
+    darknet_weights.export_darknet_weights(tiny.plan, *trainable_to_numpy(tiny),
+                                           str(Path(tmp) / "tiny.weights"))
+    p = inference.load_predictor(Path(tmp) / "tiny.weights", num_classes=2,
+                                 anchors=TINY_ANCHORS, image_size=64, backbone="yolov3_tiny",
+                                 device="cpu")
+    assert bool(torch.isfinite(p.predict_batch(x)[0]).all())
+    save_checkpoint(create_train_state(tiny, TrainConfig()), Path(tmp) / "tiny.ckpt")
+    p = inference.load_predictor_from_checkpoint(
+        Path(tmp) / "tiny.ckpt", activation="leaky_relu", anchors=TINY_ANCHORS, image_size=64,
+        backbone="yolov3_tiny", device="cpu")
+    assert bool(torch.isfinite(p.predict_batch(x)[0]).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
 assert not bad, bad

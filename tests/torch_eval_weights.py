@@ -42,9 +42,11 @@ def _f32(a) -> torch.Tensor:
 
 
 @torch.no_grad()
-def eval_weights(seed: int = 0, size: int = 64, num_classes: int = 2, calibrated: bool = True):
-    """(jax model handle, params, batch_stats) as numpy trees."""
-    model = mini_model(num_classes)
+def eval_weights(seed: int = 0, size: int = 64, num_classes: int = 2, calibrated: bool = True,
+                 model=None):
+    """(jax model handle, params, batch_stats) as numpy trees; ``model`` is
+    a JAX model handle of any family (the mini model by default)."""
+    model = mini_model(num_classes) if model is None else model
     port = YOLOv3(model.cfg, generator=torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     bns = [m for m in port.modules() if isinstance(m, nn.BatchNorm2d)]
@@ -66,7 +68,7 @@ def eval_weights(seed: int = 0, size: int = 64, num_classes: int = 2, calibrated
             bn.running_mean.add_(_f32(rng.normal(0, 0.1, bn.num_features)) * std)
             bn.running_var.mul_(_f32(rng.uniform(0.7, 1.4, bn.num_features)))
         heads = port.eval()(x)
-        c5 = num_classes + 5
+        c5 = model.cfg.num_classes + 5
         for head, y in zip((m for m in port.layers if isinstance(m, TrainableHead)), heads):
             conv = head.conv2.conv
             for a in range(y.shape[1]):

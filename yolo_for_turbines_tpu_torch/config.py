@@ -39,6 +39,13 @@ TURBINE_ANCHORS = (
     ((0.016, 0.0349), (0.0408, 0.0598), (0.110, 0.0777)),
 )
 
+# Official yolov3-tiny anchors (pixel values / 416), 2 scales x 3 anchors,
+# coarse (stride 32) scale first.
+TINY_ANCHORS = (
+    ((81 / 416, 82 / 416), (135 / 416, 169 / 416), (344 / 416, 319 / 416)),
+    ((10 / 416, 14 / 416), (23 / 416, 27 / 416), (37 / 416, 58 / 416)),
+)
+
 STRIDES = (32, 16, 8)
 
 TURBINE_LABELS = ("dirt", "damage")
@@ -52,8 +59,16 @@ def grid_sizes_for(image_size: int, strides: Sequence[int] = STRIDES) -> tuple:
     return tuple(image_size // s for s in strides)
 
 
+def strides_for(backbone: str) -> tuple:
+    """Output strides of a backbone's heads: two scales for ``yolov3_tiny``,
+    three for the others (as the JAX package's ``load_predictor`` sets
+    them)."""
+    return (32, 16) if backbone == "yolov3_tiny" else STRIDES
+
+
 def anchors_array(anchors=ANCHORS) -> np.ndarray:
-    """Anchors as a (3, 3, 2) float32 array (scale, anchor, wh), normalized."""
+    """Anchors as a (scales, 3, 2) float32 array (scale, anchor, wh),
+    normalized."""
     return np.asarray(anchors, dtype=np.float32)
 
 

@@ -13,6 +13,13 @@ path) and NMS runs the fused greedy kernel (``ops/kernels/nms_kernel.py``).
 (``models/quantize.py``): the same three entry points then run the int8
 forward, whose 26x26x512 residual stage on CUDA is the fused int8 kernel
 (``ops/kernels/resblock_int8_kernel.py``), and the same decode and NMS.
+
+Every family serves: Darknet-53, CSPDarknet-53 and YOLOv3-tiny (two
+scales); CSP and tiny have no stage the fused kernels take, and run K1
+alone. ``load_predictor`` builds a predictor from a darknet weight file,
+``load_predictor_from_checkpoint`` from a checkpoint of the port's
+trainer; both run on ``device``, ``"cuda"`` unless the caller asks for the
+CPU, and raise without a card.
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ from .config import ModelConfig
 from .data.augment import letterbox, unletterbox_boxes
 from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
-from .models.yolov3 import FoldedYOLOv3, build_plan
+from .models.yolov3 import FoldedYOLOv3, YOLOv3, build_plan
 from .ops.decode import decode_raw_all
 from .ops.nms import batched_nms, nms_to_list
+from .utils.device import resolve_device
 
 
 def _letterbox_batch(np_images: List[np.ndarray], size: int, num_threads: int) -> np.ndarray:
@@ -176,3 +184,66 @@ class Predictor:
         kept, mask = self.predict_batch(x)
         boxes = nms_to_list(kept[0], mask[0])
         return unletterbox_boxes(boxes, (h0, w0), (self.image_size, self.image_size))
+
+
+def _trainable(num_classes: int, activation: str, backbone: str, seed: int):
+    """The trainable model of a backbone (strides follow it), seeded init,
+    on the CPU."""
+    model_cfg = ModelConfig(num_classes=num_classes, activation=activation, backbone=backbone,
+                            strides=cfg.strides_for(backbone))
+    return YOLOv3(model_cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def load_predictor(
+    weights_path,
+    num_classes: int = cfg.NUM_COCO_CLASSES,
+    activation: str = "leaky_relu",
+    anchors=cfg.ANCHORS,
+    image_size: int = cfg.DEF_IMAGE_SIZE,
+    conf_threshold: float = cfg.CONF_THRESHOLD,
+    nms_iou_threshold: float = cfg.NMS_IOU_THRESHOLD,
+    seed: int = 0,
+    backbone: str = "darknet53",
+    device="cuda",
+) -> Predictor:
+    """A predictor on ``device`` from a darknet weight file (the official
+    ``yolov3.weights`` layout, or ``yolov3-tiny.weights`` with
+    ``backbone="yolov3_tiny"`` and ``anchors=config.TINY_ANCHORS``).
+
+    The trainable model of the backbone is made from ``seed``, the file is
+    read into it (``models/darknet_weights.py``; a CSP stage reads nothing
+    and keeps its seeded weights), and its ``fold()`` serves."""
+    from .models.darknet_weights import load_darknet_into
+
+    device = resolve_device(device, "load_predictor")
+    model = _trainable(num_classes, activation, backbone, seed)
+    load_darknet_into(str(weights_path), model)
+    return Predictor.from_folded(
+        model.cfg, model.fold(), device=device, anchors=anchors, image_size=image_size,
+        conf_threshold=conf_threshold, nms_iou_threshold=nms_iou_threshold)
+
+
+def load_predictor_from_checkpoint(
+    checkpoint_path,
+    num_classes: int = cfg.NUM_TURBINE_CLASSES,
+    activation: str = "mish",
+    anchors=cfg.TURBINE_ANCHORS,
+    image_size: int = cfg.DEF_IMAGE_SIZE,
+    conf_threshold: float = cfg.CONF_THRESHOLD,
+    nms_iou_threshold: float = cfg.NMS_IOU_THRESHOLD,
+    backbone: str = "darknet53",
+    device="cuda",
+) -> Predictor:
+    """A predictor on ``device`` from a checkpoint of the port's trainer
+    (``train/checkpoint.py``): the trainable model of ``backbone`` restored
+    from it, then ``fold()`` served. ``backbone``, ``num_classes`` and
+    ``activation`` must be the training run's: the module's state must
+    match the checkpoint's, key for key and shape for shape."""
+    from .train.checkpoint import load_model_state
+
+    device = resolve_device(device, "load_predictor_from_checkpoint")
+    model = _trainable(num_classes, activation, backbone, 0)  # every tensor restored below
+    load_model_state(model, checkpoint_path)
+    return Predictor.from_folded(
+        model.cfg, model.fold(), device=device, anchors=anchors, image_size=image_size,
+        conf_threshold=conf_threshold, nms_iou_threshold=nms_iou_threshold)

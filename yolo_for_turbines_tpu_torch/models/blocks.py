@@ -119,6 +119,49 @@ def fold_conv_bn(params: Dict, stats: Dict) -> Dict:
     return {"w": w, "b": b}
 
 
+class FoldedConv(nn.Module):
+    """Conv + bias (+ activation) over BN-folded OIHW weights."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.padding = 1 if kernel == 3 else 0
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
+
+    def forward(self, x, act=None):
+        y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
+        return act(y) if act is not None else y
+
+
 def upsample2x(x):
     """Nearest-neighbour 2x upsample of an NCHW tensor."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def maxpool2d(x, kernel: int, stride: int):
+    """NCHW max pool with the JAX ``maxpool2d`` padding: VALID for stride >
+    1; SAME for stride 1, which pads k - 1 rows and columns, (k - 1) // 2
+    before and the rest after (bottom and right only for a 2-wide window:
+    torch's symmetric ``padding=`` cannot express it). Float tensors pad
+    with -inf and pool with ``F.max_pool2d``; integer tensors (the int8
+    path's s8 codes) pad with their dtype's minimum and take the maximum of
+    the k * k strided views, which every device supports, and keep their
+    dtype."""
+    if stride == 1:
+        before = (kernel - 1) // 2
+        after = kernel - 1 - before
+        fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
+        x = F.pad(x, (before, after, before, after), value=fill)
+    if x.is_floating_point():
+        return F.max_pool2d(x, kernel, stride)
+    h = (x.shape[2] - kernel) // stride + 1
+    w = (x.shape[3] - kernel) // stride + 1
+    out = None
+    for i in range(kernel):
+        for j in range(kernel):
+            view = x[:, :, i : i + stride * (h - 1) + 1 : stride,
+                     j : j + stride * (w - 1) + 1 : stride]
+            out = view if out is None else torch.maximum(out, view)
+    return out

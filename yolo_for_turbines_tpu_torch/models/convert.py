@@ -3,8 +3,9 @@ module, a folded tree in the JAX layout -> the folded module, and back; the
 JAX package's int8 tree -> the port's ``qparams``.
 
 The JAX trees are plan-aligned lists of ``{"conv": ...}``, ``{"blocks":
-[{"conv1", "conv2"}, ...]}``, ``{"conv1", "conv2"}`` (a head) and ``{}``
-entries with HWIO weights. A trainable conv holds ``{w, scale, bias}`` and
+[{"conv1", "conv2"}, ...]}``, ``{"conv1", "conv2"}`` (a head), ``{"split1",
+"split2", "blocks", "transition", "fuse"}`` (a CSP stage) and ``{}`` (an
+upsample, max pool or route) entries with HWIO weights. A trainable conv holds ``{w, scale, bias}`` and
 its stats ``{mean, var}``; a head's last 1x1 holds ``{w, b}`` and its stats
 are None. ``fold_params`` (``models/yolov3.py``) gives ``{w, b}`` for every
 conv. Leaves may be numpy arrays (also bf16 ones), torch tensors, or
@@ -19,15 +20,25 @@ import torch
 
 from ..config import ModelConfig
 from .blocks import ConvBlock
+from .cspdarknet import (
+    SINGLE_CONVS,
+    CSPStage,
+    PlanCSP,
+    TrainableCSPStage,
+    conv_shapes,
+    map_stage,
+    stage_pairs,
+)
 from .yolov3 import (
-    _LATER,
     FoldedConv,
     FoldedYOLOv3,
     Head,
     Plan,
     PlanConv,
     PlanHead,
+    PlanMaxPool,
     PlanResidual,
+    PlanRoute,
     PlanUpsample,
     ResidualStage,
     TrainableHead,
@@ -70,6 +81,9 @@ def folded_from_numpy(plan: Plan, folded, cfg: ModelConfig) -> FoldedYOLOv3:
             for blk, bp in zip(layer.blocks, p["blocks"]):
                 _fill(blk["conv1"], bp["conv1"])
                 _fill(blk["conv2"], bp["conv2"])
+        elif isinstance(layer, CSPStage):
+            for conv, cp in stage_pairs(layer, p):
+                _fill(conv, cp)
         elif isinstance(layer, Head):
             _fill(layer.conv1, p["conv1"])
             _fill(layer.conv2, p["conv2"])
@@ -91,6 +105,8 @@ def folded_to_numpy(model: FoldedYOLOv3) -> list:
         elif isinstance(layer, ResidualStage):
             folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
                                       for blk in layer.blocks]})
+        elif isinstance(layer, CSPStage):
+            folded.append(map_stage(layer, conv))
         elif isinstance(layer, Head):
             folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
         else:
@@ -141,6 +157,9 @@ def load_trainable(model: YOLOv3, params, batch_stats) -> None:
             for blk, bp, bs in zip(layer.blocks, p["blocks"], s["blocks"]):
                 _fill_trainable(blk["conv1"], bp["conv1"], bs["conv1"])
                 _fill_trainable(blk["conv2"], bp["conv2"], bs["conv2"])
+        elif isinstance(layer, TrainableCSPStage):
+            for (block, cp), (_, cs) in zip(stage_pairs(layer, p), stage_pairs(layer, s)):
+                _fill_trainable(block, cp, cs)
         elif isinstance(layer, TrainableHead):
             _fill_trainable(layer.conv1, p["conv1"], s["conv1"])
             _fill_trainable(layer.conv2, p["conv2"], None)
@@ -171,6 +190,9 @@ def trainable_to_numpy(model: YOLOv3):
             pairs = [{k: conv(blk[k]) for k in ("conv1", "conv2")} for blk in layer.blocks]
             params.append({"blocks": [{k: v[0] for k, v in b.items()} for b in pairs]})
             stats.append({"blocks": [{k: v[1] for k, v in b.items()} for b in pairs]})
+        elif isinstance(layer, TrainableCSPStage):
+            params.append(map_stage(layer, lambda block: conv(block)[0]))
+            stats.append(map_stage(layer, lambda block: conv(block)[1]))
         elif isinstance(layer, TrainableHead):
             (p1, s1), (p2, s2) = conv(layer.conv1), conv(layer.conv2)
             params.append({"conv1": p1, "conv2": p2})
@@ -195,6 +217,15 @@ def _check_shape(t: torch.Tensor, shape, what: str) -> torch.Tensor:
     return t
 
 
+def _q_conv(p, in_ch: int, out_ch: int, k: int, device, what: str) -> dict:
+    """One quantized conv ``{wq, sw, b}`` on ``device``, shapes checked."""
+    return {
+        "wq": _check_shape(_leaf(p["wq"], device), (k, k, in_ch, out_ch), f"{what} weight"),
+        "sw": _check_shape(_leaf(p["sw"], device), (out_ch,), f"{what} scale"),
+        "b": _check_shape(_leaf(p["b"], device), (out_ch,), f"{what} bias"),
+    }
+
+
 def qparams_from_numpy(plan: Plan, qtree, device) -> dict:
     """The JAX package's quantized tree -> the port's ``qparams`` on ``device``.
 
@@ -204,20 +235,14 @@ def qparams_from_numpy(plan: Plan, qtree, device) -> dict:
     ``s1`` / ``s2`` and biases, and full-precision head weights. Leaves may
     be numpy arrays, jax arrays or tensors. The result has the same
     structure with int8 and f32 tensors, so both packages compute from the
-    same int8 numbers. Entries outside the Darknet-53 family raise."""
+    same int8 numbers."""
     layers = qtree["layers"]
     if len(layers) != len(plan):
         raise ValueError(f"quantized tree has {len(layers)} entries, plan {len(plan)}")
     out = []
     for entry, p in zip(plan, layers):
         if isinstance(entry, PlanConv):
-            k = entry.kernel
-            out.append({
-                "wq": _check_shape(_leaf(p["wq"], device),
-                                   (k, k, entry.in_ch, entry.out_ch), "conv weight"),
-                "sw": _check_shape(_leaf(p["sw"], device), (entry.out_ch,), "conv scale"),
-                "b": _check_shape(_leaf(p["b"], device), (entry.out_ch,), "conv bias"),
-            })
+            out.append(_q_conv(p, entry.in_ch, entry.out_ch, entry.kernel, device, "conv"))
         elif isinstance(entry, PlanResidual):
             c, ch = entry.channels, entry.channels // 2
             if len(p["blocks"]) != entry.num_blocks:
@@ -228,13 +253,27 @@ def qparams_from_numpy(plan: Plan, qtree, device) -> dict:
                 {k: _check_shape(_leaf(bp[k], device), s, f"block {k}") for k, s in want.items()}
                 for bp in p["blocks"]
             ]})
+        elif isinstance(entry, PlanCSP):
+            shapes = conv_shapes(entry)
+            if len(p["blocks"]) != entry.num_blocks:
+                raise ValueError("quantized CSP stage block count differs from the plan")
+            stage = {k: _q_conv(p[k], *shapes[k], device, k) for k in SINGLE_CONVS}
+            (bc, hc, _), (_, _, k2) = shapes["conv1"], shapes["conv2"]
+            want = {"w1q": (1, 1, bc, hc), "s1": (hc,), "b1": (hc,),
+                    "w2q": (k2, k2, hc, bc), "s2": (bc,), "b2": (bc,)}
+            stage["blocks"] = [
+                {k: _check_shape(_leaf(bp[k], device), s, f"CSP block {k}")
+                 for k, s in want.items()}
+                for bp in p["blocks"]
+            ]
+            out.append(stage)
         elif isinstance(entry, PlanHead):
             out.append({k: {"w": _leaf(p[k]["w"], device), "b": _leaf(p[k]["b"], device)}
                         for k in ("conv1", "conv2")})
-        elif isinstance(entry, PlanUpsample):
+        elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
             out.append({})
         else:
-            raise NotImplementedError(f"int8 plan entry {type(entry).__name__} {_LATER}")
+            raise TypeError(f"unknown plan entry {entry!r}")
     scales = _leaf(qtree["scales"], device)
     if scales.dim() != 1:
         raise ValueError(f"quantized scales must be a vector, got {tuple(scales.shape)}")

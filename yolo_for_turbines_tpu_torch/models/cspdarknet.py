@@ -1,0 +1,160 @@
+"""CSPDarknet-53: the Darknet-53 skeleton with Cross-Stage-Partial stages
+(counterpart of ``yolo_for_turbines_tpu/models/cspdarknet.py``).
+
+A CSP stage projects its input into two 1x1 branches: one (``split2``)
+runs a stack of residual blocks and a 1x1 ``transition``, the other
+(``split1``) is the shortcut; ``fuse`` (1x1) takes the concat
+``[transition output, shortcut]`` back to the stage's width. The neck and
+heads are Darknet-53's, and routes are saved at the two 8-block stages.
+
+Two modules over a ``PlanCSP``, with the JAX tree's names
+(``split1``, ``split2``, ``blocks[i].conv1`` / ``conv2``, ``transition``,
+``fuse``): ``TrainableCSPStage`` (conv + BN) and ``CSPStage`` (folded).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from .blocks import ConvBlock, FoldedConv
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanCSP:
+    """One CSP stage at ``channels`` (its input and output width).
+
+    ``first_stage=True`` keeps full-width branches (YOLOv4's first stage);
+    later stages use half-width ones."""
+
+    channels: int
+    num_blocks: int
+    save_route: bool = False
+    first_stage: bool = False
+
+    @property
+    def branch_ch(self) -> int:
+        return self.channels if self.first_stage else self.channels // 2
+
+    @property
+    def hidden_ch(self) -> int:
+        return self.channels // 2
+
+
+# Darknet-53's downsample skeleton with ("C", n) CSP stages in place of its
+# ("B", n) residual stacks; the neck and head entries are unchanged.
+CSP_LAYER_CONFIG = (
+    (32, 3, 1),
+    (64, 3, 2),
+    ("C", 1),
+    (128, 3, 2),
+    ("C", 2),
+    (256, 3, 2),
+    ("C", 8),  # route to detection head
+    (512, 3, 2),
+    ("C", 8),  # route to detection head
+    (1024, 3, 2),
+    ("C", 4),
+    (512, 1, 1),
+    (1024, 3, 1),
+    "S",
+    (256, 1, 1),
+    "U",
+    (256, 1, 1),
+    (512, 3, 1),
+    "S",
+    (128, 1, 1),
+    "U",
+    (128, 1, 1),
+    (256, 3, 1),
+    "S",
+)
+
+# the stage's convs outside its blocks, all 1x1
+SINGLE_CONVS = ("split1", "split2", "transition", "fuse")
+
+
+def conv_shapes(entry: PlanCSP) -> dict:
+    """{name: (in_ch, out_ch, kernel)} of each single conv, and
+    ``"conv1"`` / ``"conv2"`` of every block."""
+    c, bc, hc = entry.channels, entry.branch_ch, entry.hidden_ch
+    return {"split1": (c, bc, 1), "split2": (c, bc, 1), "transition": (bc, bc, 1),
+            "fuse": (2 * bc, c, 1), "conv1": (bc, hc, 1), "conv2": (hc, bc, 3)}
+
+
+def _forward(stage, x, act):
+    """``apply_csp_entry``'s order, shared by both modules."""
+    shortcut = stage.split1(x, act)
+    y = stage.split2(x, act)
+    for blk in stage.blocks:
+        y = y + blk["conv2"](blk["conv1"](y, act), act)
+    y = stage.transition(y, act)
+    return stage.fuse(torch.cat([y, shortcut], dim=1), act)
+
+
+class TrainableCSPStage(nn.Module):
+    """A CSP stage of ``ConvBlock``s (conv + BN + activation); weights drawn
+    from ``generator`` in the order split1, split2, the blocks, transition,
+    fuse."""
+
+    def __init__(self, entry: PlanCSP, generator=None):
+        super().__init__()
+        self.entry = entry
+        shapes = conv_shapes(entry)
+
+        def conv(name):
+            return ConvBlock(*shapes[name], generator=generator)
+
+        self.split1 = conv("split1")
+        self.split2 = conv("split2")
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({"conv1": conv("conv1"), "conv2": conv("conv2")})
+            for _ in range(entry.num_blocks)
+        )
+        self.transition = conv("transition")
+        self.fuse = conv("fuse")
+
+    def forward(self, x, act):
+        return _forward(self, x, act)
+
+
+class CSPStage(nn.Module):
+    """A CSP stage over BN-folded weights (conv + bias + activation)."""
+
+    def __init__(self, entry: PlanCSP):
+        super().__init__()
+        self.entry = entry
+        shapes = conv_shapes(entry)
+        self.split1 = FoldedConv(*shapes["split1"])
+        self.split2 = FoldedConv(*shapes["split2"])
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({"conv1": FoldedConv(*shapes["conv1"]),
+                           "conv2": FoldedConv(*shapes["conv2"])})
+            for _ in range(entry.num_blocks)
+        )
+        self.transition = FoldedConv(*shapes["transition"])
+        self.fuse = FoldedConv(*shapes["fuse"])
+
+    def forward(self, x, act):
+        return _forward(self, x, act)
+
+
+def map_stage(stage, fn) -> dict:
+    """The JAX tree of one CSP stage: ``fn(conv module)`` at each conv's
+    place (``{"split1", "split2", "blocks": [{"conv1", "conv2"}], ...}``)."""
+    out = {k: fn(getattr(stage, k)) for k in SINGLE_CONVS}
+    out["blocks"] = [{k: fn(blk[k]) for k in ("conv1", "conv2")} for blk in stage.blocks]
+    return out
+
+
+def stage_pairs(stage, tree):
+    """(conv module, its subtree of ``tree``) for every conv of the stage,
+    in the order of the JAX tree's keys; checks the block count."""
+    if len(tree["blocks"]) != len(stage.blocks):
+        raise ValueError("CSP stage block count differs from the plan")
+    pairs = [(getattr(stage, k), tree[k]) for k in SINGLE_CONVS]
+    for blk, bt in zip(stage.blocks, tree["blocks"]):
+        pairs += [(blk["conv1"], bt["conv1"]), (blk["conv2"], bt["conv2"])]
+    return pairs

@@ -15,6 +15,11 @@ File format (parity with reference code/model.py:160-170, 227-337):
   cutoff 74 loads 37 conv layers.
 - ``freeze=True`` marks every copied layer frozen (the reference sets
   requires_grad=False only on layers it copied).
+- A CSP stage has no darknet layout: the reader takes nothing for it (its
+  weights stay as given, its loaded flags False) and goes on at the same
+  offset, so later layers of a CSP plan read another plan's file at other
+  offsets, as the JAX reader does; ``expected_num_floats`` counts it as 0
+  and the exporter refuses it. Max pools and routes hold nothing.
 
 :func:`load_darknet_weights` and :func:`export_darknet_weights` work on the
 JAX layout's numpy ``(params, batch_stats)`` trees (HWIO weights), as the
@@ -30,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .cspdarknet import SINGLE_CONVS, PlanCSP, TrainableCSPStage
 from .yolov3 import (
     Plan,
     PlanConv,
@@ -181,8 +187,13 @@ def load_darknet_weights(
             loaded_flags.append({"conv1": l1, "conv2": conv is not None})
         elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
             loaded_flags.append({})
+        elif isinstance(entry, PlanCSP):
+            # nothing read: no darknet counterpart (see the module docstring)
+            loaded_flags.append({k: False for k in SINGLE_CONVS}
+                                | {"blocks": [{"conv1": False, "conv2": False}
+                                              for _ in p["blocks"]]})
         else:
-            raise NotImplementedError(f"plan entry {type(entry).__name__} has no darknet layout")
+            raise TypeError(f"unknown plan entry {entry!r}")
 
     frozen_mask = [_expand_flags(p, f, freeze) for p, f in zip(params, loaded_flags)]
     return params, batch_stats, frozen_mask, reader.param_idx
@@ -215,6 +226,12 @@ def frozen_parameter_names(model: YOLOv3, frozen_mask) -> List[str]:
         if isinstance(layer, ConvBlock):
             block(f"layers.{i}", m["conv"])
         elif isinstance(layer, TrainableResidualStage):
+            for j, bm in enumerate(m["blocks"]):
+                for k in ("conv1", "conv2"):
+                    block(f"layers.{i}.blocks.{j}.{k}", bm[k])
+        elif isinstance(layer, TrainableCSPStage):
+            for k in SINGLE_CONVS:
+                block(f"layers.{i}.{k}", m[k])
             for j, bm in enumerate(m["blocks"]):
                 for k in ("conv1", "conv2"):
                     block(f"layers.{i}.blocks.{j}.{k}", bm[k])

@@ -11,20 +11,23 @@ recipe and the same quantized tree:
   XLA's int32 convs), then an f32 epilogue of dequant, bias, activation,
   residual add and requant in the JAX operation order;
 - heads run in ``compute_dtype`` from the dequantized trunk;
-- an upsample concat feeding a conv runs as two int8 convs on the split
-  weights, dequant-summed with per-branch scales ("conv" mode); one feeding
-  a head concats the dequantized branches ("head" mode).
+- a concat feeding a conv runs as two int8 convs on the split weights,
+  dequant-summed with per-branch scales: an upsample concat followed by a
+  conv ("conv" mode) and every CSP stage's ``fuse``; an upsample concat
+  feeding a head concats the dequantized branches ("head" mode); one
+  feeding anything else is requantized to one calibrated scale
+  ("requant" mode, which no built-in family reaches);
+- a max pool runs on the s8 codes (it keeps their scale), and a route
+  saves the codes with their scale.
 
 On CUDA the 26x26x512 residual stage runs the fused int8 kernel K4
-(``ops/kernels/resblock_int8_kernel.py``), routed on each call's own shape.
+(``ops/kernels/resblock_int8_kernel.py``), routed on each call's own shape;
+CSP blocks take the layer path, as in the JAX package.
 The quantized tree is
 ``{"layers": [...], "scales": (n,) f32}`` as in JAX (``models/convert.py::
 qparams_from_numpy`` reads the JAX package's); ``pack_int8`` turns it once
 into the per-layer operands ``apply_inference_int8`` consumes, so a serving
 call does no packing and no host sync.
-
-Only the Darknet-53 family is ported: CSP stages, max pools, routes and the
-"requant" concat mode raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,9 +45,18 @@ from ..ops.kernels.resblock_int8_kernel import (
     kmajor_weights,
     pack_int8_stage,
 )
-from .blocks import full_f32, get_activation
+from .blocks import full_f32, get_activation, maxpool2d
 from .convert import qparams_from_numpy
-from .yolov3 import _LATER, PlanConv, PlanHead, PlanResidual, PlanUpsample, _head_reshape
+from .cspdarknet import SINGLE_CONVS, PlanCSP
+from .yolov3 import (
+    PlanConv,
+    PlanHead,
+    PlanMaxPool,
+    PlanResidual,
+    PlanRoute,
+    PlanUpsample,
+    _head_reshape,
+)
 
 INPUT_SCALE = 1.0 / 127.0  # inputs are [0, 1]
 
@@ -62,10 +74,6 @@ def _wq(w) -> tuple:
     s = np.maximum(s, 1e-12)
     wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
     return torch.from_numpy(wq), torch.from_numpy(s.astype(np.float32))
-
-
-def _unsupported(entry):
-    return NotImplementedError(f"int8 plan entry {type(entry).__name__} {_LATER}")
 
 
 def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
@@ -104,15 +112,33 @@ def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
                     x = rec(x + y if entry.use_residual else y)
                 if entry.save_route:
                     routes.append(x)
+            elif isinstance(entry, PlanCSP):
+                # apply_inference_int8's order: split1, split2, per block
+                # (conv1, the sum), transition, fuse (which reads the concat
+                # as two branches: the merged tensor gets no scale)
+                shortcut = rec(conv(p["split1"], x, 1, 1))
+                y = rec(conv(p["split2"], x, 1, 1))
+                for bp in p["blocks"]:
+                    h = rec(conv(bp["conv1"], y, 1, 1))
+                    y = rec(y + conv(bp["conv2"], h, 3, 1))
+                y = rec(conv(p["transition"], y, 1, 1))
+                x = rec(conv(p["fuse"], torch.cat([y, shortcut], dim=1), 1, 1))
+                if entry.save_route:
+                    routes.append(x)
             elif isinstance(entry, PlanHead):
                 pass  # heads run in compute_dtype; no int8 tensors
+            elif isinstance(entry, PlanMaxPool):
+                x = maxpool2d(x, entry.kernel, entry.stride)  # keeps the scale
+            elif isinstance(entry, PlanRoute):
+                routes.append(x)
             elif isinstance(entry, PlanUpsample):
-                if _concat_mode(plan_t[i + 1] if i + 1 < len(plan_t) else None) == "requant":
-                    raise _unsupported(entry)
                 up = F.interpolate(x, scale_factor=2, mode="nearest")
                 x = torch.cat([up, routes.pop()], dim=1)
+                # only a "requant" concat is quantized as one tensor
+                if _concat_mode(plan_t[i + 1] if i + 1 < len(plan_t) else None) == "requant":
+                    rec(x)
             else:
-                raise _unsupported(entry)
+                raise TypeError(f"unknown plan entry {entry!r}")
         m = torch.stack(maxes).cpu().numpy()
     return tuple(float(max(v, 1e-12)) / 127.0 for v in m)
 
@@ -120,8 +146,8 @@ def calibrate(plan, folded, x_calib, activation: str = "leaky_relu"):
 def _concat_mode(next_entry) -> str:
     """How a channel concat's consumer handles two differently-scaled int8
     branches: "conv" (split-weight int8 convs, dequant-summed), "head"
-    (the head concats the dequantized branches), "requant" (one shared
-    scale; not ported yet)."""
+    (the head concats the dequantized branches), "requant" (the concat
+    requantized to one calibrated scale)."""
     if isinstance(next_entry, PlanConv):
         return "conv"
     if isinstance(next_entry, PlanHead):
@@ -159,10 +185,14 @@ def quantize_folded(plan, folded, x_calib, activation: str = "leaky_relu"):
             layers.append(_q_conv(p["conv"]))
         elif isinstance(entry, PlanResidual):
             layers.append({"blocks": _q_blocks(p["blocks"])})
-        elif isinstance(entry, (PlanHead, PlanUpsample)):
+        elif isinstance(entry, PlanCSP):
+            stage = {k: _q_conv(p[k]) for k in SINGLE_CONVS}
+            stage["blocks"] = _q_blocks(p["blocks"])
+            layers.append(stage)
+        elif isinstance(entry, (PlanHead, PlanUpsample, PlanMaxPool, PlanRoute)):
             layers.append(p)
         else:
-            raise _unsupported(entry)
+            raise TypeError(f"unknown plan entry {entry!r}")
     tree = {"layers": layers, "scales": np.asarray(scales, np.float32)}
     return qparams_from_numpy(plan, tree, torch.as_tensor(x_calib).device)
 
@@ -265,19 +295,52 @@ def pack_int8_blocks(blocks_q, s_in, s1_list, s2_list, use_residual: bool) -> li
     return out
 
 
+def _pack_conv(p, kernel: int, stride: int, s_in, s_out, split=None) -> dict:
+    """A quantized conv's layer-path operands: ``_wmat`` weights (views of
+    ``p["wq"]`` where no padding is needed), ``d = s_in * s_w`` rows, bias
+    and output scale. ``split = (Ca, s_a, s_b)`` splits the weights at input
+    channel Ca for two int8 convs on the branches of a concat, with rows
+    ``da = s_a * s_w`` and ``db = s_b * s_w``."""
+    q = {"kernel": kernel, "stride": stride, "pad": 1 if kernel == 3 else 0, "b": p["b"],
+         "s_out": s_out}
+    if split is None:
+        q["w"], q["d"] = _wmat(p["wq"]), s_in * p["sw"]
+    else:
+        ca, s_a, s_b = split
+        q["wa"], q["wb"] = _wmat(p["wq"][:, :, :ca]), _wmat(p["wq"][:, :, ca:])
+        q["da"], q["db"] = s_a * p["sw"], s_b * p["sw"]
+    return q
+
+
+def _run_conv(q, xq, activation: str, xb=None):
+    """The conv of :func:`_pack_conv` on s8 codes: one int8 conv and its
+    epilogue, or with ``xb`` (the second branch of a split conv) two int8
+    convs dequant-summed in one epilogue."""
+    geom = q["kernel"], q["stride"], q["pad"]
+    if xb is None:
+        return _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"], activation)
+    return _epilogue(_conv_i8(xq, q["wa"], *geom), q["da"], q["b"], q["s_out"], activation,
+                     extra=(_conv_i8(xb, q["wb"], *geom), q["db"]))
+
+
 def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
     """Walk the plan once over ``qparams`` and fold the calibrated scale
     chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
     tensors for the layer path (weights as views of ``qparams``' where no
     padding is needed), K4's stacked operands and its K-major weight copies
     for every ``use_residual`` stage whose channel count the kernel takes
-    (C = 512: one stage of Darknet-53; None elsewhere), head weights in
-    ``compute_dtype``. Nothing here depends on the image size: each call of
-    ``apply_inference_int8`` routes such a stage to K4 or to the layer path
-    on its own shape, as the JAX function does. The f32 arithmetic is the
-    JAX function's; everything stays on the qparams' device."""
+    (C = 512: one stage of Darknet-53; None elsewhere, CSP blocks
+    included), head weights in ``compute_dtype``. Nothing here depends on
+    the image size: each call of ``apply_inference_int8`` routes such a
+    stage to K4 or to the layer path on its own shape, as the JAX function
+    does. The scales are drawn in the JAX function's order and its f32
+    arithmetic is kept; everything stays on the qparams' device."""
     scales = qparams["scales"]
     si = iter(range(scales.shape[0]))
+
+    def scale():
+        return scales[next(si)]
+
     s_x = torch.tensor(INPUT_SCALE, dtype=torch.float32, device=scales.device)
     packed = [{"s_in": s_x}]
     routes = []  # scales of the saved routes
@@ -286,21 +349,17 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
     for i, (entry, p) in enumerate(zip(plan_t, qparams["layers"])):
         nxt = plan_t[i + 1] if i + 1 < len(plan_t) else None
         if isinstance(entry, PlanConv):
-            pad = 1 if entry.kernel == 3 else 0
-            s_out = scales[next(si)]
-            q = {"kernel": entry.kernel, "stride": entry.stride, "pad": pad, "b": p["b"],
-                 "s_out": s_out}
+            s_out = scale()
             if pending is not None:
                 (s_a, s_b), ca = pending
                 pending = None
-                q["wa"], q["wb"] = _wmat(p["wq"][:, :, :ca]), _wmat(p["wq"][:, :, ca:])
-                q["da"], q["db"] = s_a * p["sw"], s_b * p["sw"]
+                q = _pack_conv(p, entry.kernel, entry.stride, None, s_out, split=(ca, s_a, s_b))
             else:
-                q["w"], q["d"] = _wmat(p["wq"]), s_x * p["sw"]
+                q = _pack_conv(p, entry.kernel, entry.stride, s_x, s_out)
             s_x = s_out
         elif isinstance(entry, PlanResidual):
             # the stream interleaves (s1, s2) per block
-            pairs = [(scales[next(si)], scales[next(si)]) for _ in p["blocks"]]
+            pairs = [(scale(), scale()) for _ in p["blocks"]]
             s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
             fusable = entry.use_residual and entry.channels == KERNEL_C
             stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if fusable else None
@@ -312,6 +371,25 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
             s_x = s2_list[-1]
             if entry.save_route:
                 routes.append(s_x)
+        elif isinstance(entry, PlanCSP):
+            # the JAX stream: split1, split2, (s1, s2) per block,
+            # transition, fuse
+            s_sc = scale()
+            q = {"split1": _pack_conv(p["split1"], 1, 1, s_x, s_sc)}
+            s_y = scale()
+            q["split2"] = _pack_conv(p["split2"], 1, 1, s_x, s_y)
+            pairs = [(scale(), scale()) for _ in p["blocks"]]
+            q["blocks"] = pack_int8_blocks(p["blocks"], s_y, [a for a, _ in pairs],
+                                           [b for _, b in pairs], use_residual=True)
+            s_y = pairs[-1][1] if pairs else s_y
+            s_t = scale()
+            q["transition"] = _pack_conv(p["transition"], 1, 1, s_y, s_t)
+            s_x = scale()
+            # fuse reads [transition output, shortcut] as two branches
+            q["fuse"] = _pack_conv(p["fuse"], 1, 1, None, s_x,
+                                   split=(entry.branch_ch, s_t, s_sc))
+            if entry.save_route:
+                routes.append(s_x)
         elif isinstance(entry, PlanHead):
             q = _head_weights(p, compute_dtype)
             if pending is not None:
@@ -321,11 +399,18 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
                 q["s"] = s_x
         elif isinstance(entry, PlanUpsample):
             if _concat_mode(nxt) == "requant":
-                raise _unsupported(entry)
-            pending = ((s_x, routes.pop()), entry.in_ch)
+                q = {"s_a": s_x, "s_b": routes.pop(), "s_out": scale()}
+                s_x = q["s_out"]
+            else:
+                pending = ((s_x, routes.pop()), entry.in_ch)
+                q = {}
+        elif isinstance(entry, PlanRoute):
+            routes.append(s_x)
             q = {}
+        elif isinstance(entry, PlanMaxPool):
+            q = {}  # the codes keep their scale
         else:
-            raise _unsupported(entry)
+            raise TypeError(f"unknown plan entry {entry!r}")
         packed.append(q)
     return packed
 
@@ -361,15 +446,11 @@ def apply_inference_int8(
         pending = None  # (upsampled trunk, route) of an upsample concat
         for entry, q in zip(plan, packed[1:]):
             if isinstance(entry, PlanConv):
-                geom = q["kernel"], q["stride"], q["pad"]
                 if pending is not None:
-                    aq, bq = pending
+                    xq = _run_conv(q, pending[0], activation, xb=pending[1])
                     pending = None
-                    xq = _epilogue(_conv_i8(aq, q["wa"], *geom), q["da"], q["b"], q["s_out"],
-                                   activation, extra=(_conv_i8(bq, q["wb"], *geom), q["db"]))
                 else:
-                    xq = _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"],
-                                   activation)
+                    xq = _run_conv(q, xq, activation)
             elif isinstance(entry, PlanResidual):
                 fused = None
                 if q["stage"] is not None and not portable:
@@ -377,6 +458,14 @@ def apply_inference_int8(
                                                             kmajor=q["stage_kmajor"])
                 xq = fused if fused is not None else residual_blocks_int8(
                     xq, q["blocks"], activation)
+                if entry.save_route:
+                    routes.append(xq)
+            elif isinstance(entry, PlanCSP):
+                shortcut = _run_conv(q["split1"], xq, activation)
+                yq = residual_blocks_int8(_run_conv(q["split2"], xq, activation), q["blocks"],
+                                          activation)
+                yq = _run_conv(q["transition"], yq, activation)
+                xq = _run_conv(q["fuse"], yq, activation, xb=shortcut)
                 if entry.save_route:
                     routes.append(xq)
             elif isinstance(entry, PlanHead):
@@ -394,7 +483,18 @@ def apply_inference_int8(
                 preds.append(y if raw_heads else _head_reshape(
                     y, entry.num_classes, entry.anchors_per_scale))
             elif isinstance(entry, PlanUpsample):
-                pending = (_upsample2x(xq), routes.pop())
+                up, route = _upsample2x(xq), routes.pop()
+                if "s_out" in q:  # "requant": one tensor at one scale
+                    xq = _requant(torch.cat([up.float() * q["s_a"], route.float() * q["s_b"]],
+                                            dim=-1), q["s_out"])
+                else:
+                    pending = (up, route)
+            elif isinstance(entry, PlanRoute):
+                routes.append(xq)
+            elif isinstance(entry, PlanMaxPool):
+                # NHWC codes through the NCHW pool and back
+                xq = maxpool2d(xq.permute(0, 3, 1, 2), entry.kernel,
+                               entry.stride).permute(0, 2, 3, 1).contiguous()
             else:
-                raise _unsupported(entry)
+                raise TypeError(f"unknown plan entry {entry!r}")
     return preds

@@ -1,5 +1,5 @@
-"""YOLOv3 (Darknet-53 backbone + 3-scale heads) in PyTorch, trainable and
-folded.
+"""YOLOv3 (Darknet-53, CSPDarknet-53 or tiny backbone + heads) in PyTorch,
+trainable and folded.
 
 Counterpart of ``yolo_for_turbines_tpu/models/yolov3.py``: the same layer
 DSL and static plan, and two ``nn.Module``s over it:
@@ -13,12 +13,12 @@ DSL and static plan, and two ``nn.Module``s over it:
   raw_heads=True)`` over BN-folded weights (conv + bias + activation per
   layer), which serves.
 
-Routes are saved at the 8-block residual stages and popped LIFO after each
-upsample; a concat is ``[upsampled, route]``; a head is a branch and the
-trunk continues from the head's input.
-
-Only the Darknet-53 family is ported so far: CSP stages and the tiny
-backbone raise ``NotImplementedError``.
+Routes are saved at the 8-block residual and CSP stages and at a
+``PlanRoute`` (tiny), and popped LIFO after each upsample; a concat is
+``[upsampled, route]``; a head is a branch and the trunk continues from the
+head's input. The backbone follows ``cfg.backbone`` (``cspdarknet53``:
+``models/cspdarknet.py``; ``yolov3_tiny``: ``models/yolov3_tiny.py``)
+unless ``cfg.layer_config`` is set.
 """
 
 from __future__ import annotations
@@ -38,9 +38,15 @@ from ..ops.kernels.resblock_kernel import (
     stack_block_params,
     stage_wins,
 )
-from .blocks import ConvBlock, conv2d, get_activation, upsample2x
-
-_LATER = "is not ported yet (the other model families come in a later slice of the port)"
+from .blocks import ConvBlock, FoldedConv, get_activation, maxpool2d, upsample2x
+from .cspdarknet import (
+    CSP_LAYER_CONFIG,
+    CSPStage,
+    PlanCSP,
+    TrainableCSPStage,
+    conv_shapes,
+    map_stage,
+)
 
 # Same declarative architecture list as the JAX package (reference:
 # code/model.py:20-45).
@@ -132,16 +138,24 @@ class PlanUpsample:
 Plan = Tuple
 
 
-def build_plan(cfg: ModelConfig, layer_config=LAYER_CONFIG) -> Plan:
-    """Walk the layer DSL into a static plan (reference: code/model.py:195-225)."""
-    if cfg.backbone == "yolov3_tiny" and cfg.layer_config is None:
-        raise NotImplementedError(f"backbone 'yolov3_tiny' {_LATER}")
-    if cfg.backbone == "cspdarknet53" and cfg.layer_config is None:
-        raise NotImplementedError(f"backbone 'cspdarknet53' {_LATER}")
+def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
+    """Walk the layer DSL into a static plan (reference: code/model.py:195-225).
+
+    The DSL is ``cfg.layer_config`` when set, else ``layer_config`` when
+    given, else the backbone's: ``CSP_LAYER_CONFIG`` for ``cspdarknet53``,
+    ``build_tiny_plan`` for ``yolov3_tiny`` and ``LAYER_CONFIG`` for any
+    other name, as ``YOLOv3.plan`` of the JAX package chooses."""
     if cfg.layer_config is not None:
         layer_config = cfg.layer_config
+    elif layer_config is None:
+        if cfg.backbone == "yolov3_tiny":
+            from .yolov3_tiny import build_tiny_plan
+
+            return build_tiny_plan(cfg)
+        layer_config = CSP_LAYER_CONFIG if cfg.backbone == "cspdarknet53" else LAYER_CONFIG
     plan: List = []
     in_ch = cfg.in_channels
+    first_csp = True
     for block in layer_config:
         if isinstance(block, tuple) and block[0] == "B":
             n = block[1]
@@ -149,7 +163,10 @@ def build_plan(cfg: ModelConfig, layer_config=LAYER_CONFIG) -> Plan:
                 PlanResidual(channels=in_ch, num_blocks=n, save_route=(n == 8))
             )
         elif isinstance(block, tuple) and block[0] == "C":
-            raise NotImplementedError(f"CSP stage {block!r} {_LATER}")
+            n = block[1]
+            plan.append(PlanCSP(channels=in_ch, num_blocks=n, save_route=(n == 8),
+                                first_stage=first_csp))
+            first_csp = False
         elif isinstance(block, tuple):
             out_ch, k, s = block
             plan.append(PlanConv(in_ch, out_ch, kernel=k, stride=s))
@@ -245,12 +262,14 @@ class YOLOv3(nn.Module):
                                         bn=entry.bn, generator=generator))
             elif isinstance(entry, PlanResidual):
                 layers.append(TrainableResidualStage(entry, generator))
+            elif isinstance(entry, PlanCSP):
+                layers.append(TrainableCSPStage(entry, generator))
             elif isinstance(entry, PlanHead):
                 layers.append(TrainableHead(entry, generator))
-            elif isinstance(entry, PlanUpsample):
+            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
                 layers.append(nn.Identity())
             else:
-                raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+                raise TypeError(f"unknown plan entry {entry!r}")
         self.layers = nn.ModuleList(layers)
 
     @property
@@ -265,13 +284,17 @@ class YOLOv3(nn.Module):
         for entry, layer in zip(self.plan, self.layers):
             if isinstance(entry, PlanConv):
                 x = layer(x, act)
-            elif isinstance(entry, PlanResidual):
+            elif isinstance(entry, (PlanResidual, PlanCSP)):
                 x = layer(x, act)
                 if entry.save_route:
                     routes.append(x)
             elif isinstance(entry, PlanHead):
                 y = layer(x, act).permute(0, 2, 3, 1)
                 preds.append(_head_reshape(y, entry.num_classes, entry.anchors_per_scale))
+            elif isinstance(entry, PlanMaxPool):
+                x = maxpool2d(x, entry.kernel, entry.stride)
+            elif isinstance(entry, PlanRoute):
+                routes.append(x)
             elif isinstance(entry, PlanUpsample):
                 x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
         return preds
@@ -293,6 +316,8 @@ class YOLOv3(nn.Module):
             elif isinstance(layer, TrainableResidualStage):
                 folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
                                           for blk in layer.blocks]})
+            elif isinstance(layer, TrainableCSPStage):
+                folded.append(map_stage(layer, conv))
             elif isinstance(layer, TrainableHead):
                 folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
             else:
@@ -332,38 +357,34 @@ def init_plan(plan: Plan, generator: torch.Generator):
                  "conv2": _init_folded_conv(generator, c // 2, c, 3)}
                 for _ in range(entry.num_blocks)
             ]})
+        elif isinstance(entry, PlanCSP):
+            # drawn in the module's order: split1, split2, the blocks,
+            # transition, fuse
+            shapes = conv_shapes(entry)
+            names = ["split1", "split2", *["conv1", "conv2"] * entry.num_blocks,
+                     "transition", "fuse"]
+            convs = [_init_folded_conv(generator, *shapes[k]) for k in names]
+            stage = dict(zip(("split1", "split2"), convs[:2]))
+            stage["blocks"] = [{"conv1": convs[i], "conv2": convs[i + 1]}
+                               for i in range(2, len(convs) - 2, 2)]
+            stage.update(zip(("transition", "fuse"), convs[-2:]))
+            folded.append(stage)
         elif isinstance(entry, PlanHead):
             out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
             folded.append({
                 "conv1": _init_folded_conv(generator, entry.in_ch, entry.mid, 3),
                 "conv2": _init_folded_conv(generator, entry.mid, out_ch, 1, bn=False),
             })
-        elif isinstance(entry, PlanUpsample):
+        elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
             folded.append({})
         else:
-            raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+            raise TypeError(f"unknown plan entry {entry!r}")
     return folded
 
 
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
-
-
-class FoldedConv(nn.Module):
-    """Conv + bias (+ activation) over BN-folded OIHW weights."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
-        super().__init__()
-        self.stride = stride
-        self.padding = 1 if kernel == 3 else 0
-        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
-
-    def forward(self, x, act=None):
-        y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
-        return act(y) if act is not None else y
 
 
 class ResidualStage(nn.Module):
@@ -465,12 +486,14 @@ class FoldedYOLOv3(nn.Module):
                 layers.append(FoldedConv(entry.in_ch, entry.out_ch, entry.kernel, entry.stride))
             elif isinstance(entry, PlanResidual):
                 layers.append(ResidualStage(entry))
+            elif isinstance(entry, PlanCSP):
+                layers.append(CSPStage(entry))
             elif isinstance(entry, PlanHead):
                 layers.append(Head(entry))
-            elif isinstance(entry, PlanUpsample):
+            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
                 layers.append(nn.Identity())
             else:
-                raise NotImplementedError(f"plan entry {entry!r} {_LATER}")
+                raise TypeError(f"unknown plan entry {entry!r}")
         self.layers = nn.ModuleList(layers)
         # cfg.s2d_stem is a train-mode TPU layout and is ignored here
         self.fuse_resblocks = cfg.fuse_resblocks
@@ -491,8 +514,16 @@ class FoldedYOLOv3(nn.Module):
                 x = layer(x, act, self.cfg.activation, self.fuse_resblocks)
                 if entry.save_route:
                     routes.append(x)
+            elif isinstance(entry, PlanCSP):
+                x = layer(x, act)
+                if entry.save_route:
+                    routes.append(x)
             elif isinstance(entry, PlanHead):
                 preds.append(layer(x, act).permute(0, 2, 3, 1))
+            elif isinstance(entry, PlanMaxPool):
+                x = maxpool2d(x, entry.kernel, entry.stride)
+            elif isinstance(entry, PlanRoute):
+                routes.append(x)
             elif isinstance(entry, PlanUpsample):
                 x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
         return preds

@@ -98,14 +98,16 @@ def profile_train_step(trainer, x, targets, **kwargs):
 
 
 def train_batch(batch: int, size: int, device, strides=(32, 16, 8), classes: int = 2,
-                seed: int = 0):
+                seed: int = 0, anchors=None):
     """Seeded noise images and their targets (one random box per image,
-    ``assign_targets``), on ``device``."""
+    ``assign_targets`` over ``anchors``, ``TURBINE_ANCHORS`` by default:
+    one row of anchors per stride), on ``device``."""
     from ..config import TURBINE_ANCHORS, grid_sizes_for
     from ..data.dataset import assign_targets
 
     rng = np.random.default_rng(seed)
-    anchors = np.asarray(TURBINE_ANCHORS, np.float32).reshape(-1, 2)
+    anchors = np.asarray(TURBINE_ANCHORS if anchors is None else anchors,
+                         np.float32).reshape(-1, 2)
     x = rng.uniform(size=(batch, size, size, 3)).astype(np.float32)
     per_image = [assign_targets([[*rng.uniform(0.2, 0.8, 2), *rng.uniform(0.05, 0.5, 2),
                                   int(rng.integers(classes))]], anchors,

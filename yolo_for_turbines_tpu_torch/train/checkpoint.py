@@ -34,6 +34,13 @@ def save_checkpoint(state: Union[TrainState, dict], filename) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def load_model_state(model: torch.nn.Module, filename) -> None:
+    """Load only the module part of ``filename`` (weights and running
+    statistics) into ``model``, in place on its device."""
+    payload = torch.load(Path(filename), map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model"])
+
+
 def load_checkpoint(state: TrainState, filename,
                     lr_override: Optional[float] = None) -> TrainState:
     """Load ``filename`` into ``state`` (its module and optimizer, on their

@@ -42,6 +42,7 @@ from ..data.loader import get_loaders, prefetch_to_device
 from ..models.darknet_weights import load_darknet_into
 from ..models.yolov3 import YOLOv3
 from ..ops.map import calc_map, calc_map_device_batched
+from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluate import make_fused_eval_step, rows_from_eval_step
 from .metrics import MetricsLogger
@@ -52,17 +53,6 @@ from .steps import (
     make_train_step,
     scheduled_lr,
 )
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (nothing runs
-    on the CPU unless asked for)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "training runs on CUDA and no CUDA device is available; pass device='cpu' "
-            "to train on the CPU")
-    return device
 
 
 def scaled_anchors_for(anchors, image_size: int, strides=cfg.STRIDES) -> np.ndarray:
@@ -93,7 +83,7 @@ class Trainer:
         device="cuda",
         report_callback=None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "training")
         self.cfg = train_cfg
         self.model_cfg = model_cfg or ModelConfig(
             num_classes=cfg.NUM_TURBINE_CLASSES, activation=train_cfg.activation
@@ -290,7 +280,7 @@ def train(
     device="cuda",
 ) -> float:
     """Reference-parity train() entry (code/train.py:158-239). Returns best mAP."""
-    device = resolve_device(device)
+    device = resolve_device(device, "training")
     if isinstance(hyperparam_config, TrainConfig):
         tc = hyperparam_config
     else:
@@ -318,6 +308,7 @@ def train(
             num_classes=num_classes,
             activation=tc.activation,
             backbone=backbone,
+            strides=cfg.strides_for(backbone),
         ),
         anchors=anchors,
         weights_path=weights_path,
