@@ -78,9 +78,10 @@ Phases, one JSON line each:
           prewarm (finite, the loss falling; step time, images/s, peak
           memory; at 416 the torch.profiler idle share of one step); the
           trained state through a checkpoint and back, bit for bit; train()
-          for 10 epochs of 2 steps (10 of warmup) on 96 seeded synthetic
-          JPEGs (B = 32):
-          the loader's host time per batch, K1 launched at epoch 9's fused
+          for 10 epochs of 2 steps (10 of warmup to lr 2e-4) on 96 seeded
+          synthetic JPEGs (B = 32):
+          the loader's host time per batch, the last epoch's train loss
+          below the first's, K1 launched at epoch 9's fused
           eval at least once per val batch (K2 never), the metrics JSONL
           with train, val and mAP rows, its checkpoint back on the card bit
           for bit, and that state's epoch-9 eval with device mAP equal to
@@ -107,6 +108,27 @@ Phases, one JSON line each:
           with the detections of Predictor.from_folded on its fold(); one
           bf16 tiny train step and eval step at B = 32 (losses finite, K1
           once).
+  deploy  the 80-class Darknet-53 with phase eval's weights, written as a
+          darknet file by the port, 416px: tools.export writes a bf16 and
+          an int8 bundle (8 seeded calibration JPEGs), each with exported
+          programs at B = 8 and 128; load_predictor_bundle serves them at B
+          = 8 and 128, bit for bit as load_predictor (and quantize) in this
+          process, with K1 once and K2 (bf16) or K4 (int8) 8 times per
+          predict_batch; ExportedPredictor on the card launches no kernel,
+          its masks equal and boxes within EXPORT_BOX_ATOL of the live
+          predictor's on the plain layer path (bf16: fuse_resblocks=False;
+          int8: as loaded, K4's codes being the layer path's); .pt2 sizes
+          against the weights; images/s of both; tools.demo on one JPEG:
+          K1 exactly once, the PNG at the image's size, its count equal to
+          predict_image's;
+  hpo     tools.anchors on the train phase's synthetic labels (the same 96
+          seeded JPEGs), then tune_model over make_hpo_train_fn (the 2-class
+          mish Darknet-53 at 416px, B = 32, no multi-scale, those anchors):
+          4 trials in order (grace 1, max 4 epochs, 2 brackets), each
+          trial's epochs equal to its bracket's rung budgets, K1 at least
+          once per val batch per rung, best_config.json read back by
+          load_config; then 2 trials in 2 spawned workers, both on the card;
+          wall time per trial and per search.
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -218,8 +240,16 @@ TRAIN_STATS_RTOL = 1e-5
 TRAIN_STEPS = 20
 # train(): TRAIN_IMAGES seeded synthetic JPEGs (640x480), split 85 / 15,
 # B = 32, max_num_steps = 20 (half of them warmup): 2 steps per epoch for 10
-# epochs, and the fused eval (K1) at epoch 9
+# epochs, and the fused eval (K1) at epoch 9. Peak lr TRAIN_LR, the lr that
+# the default recipe (1e-3, warmup 1% of 10,000 steps) reaches at its 20th
+# step: from scratch at 1e-3 this run sits on the edge of divergence, and
+# one run of this script stopped there on train()'s NaN guard. Measured by
+# tools/train_stability.py (--what train, 4 processes, an H100), the
+# largest epoch train loss after the first: at 1e-3 39.0, 11.6, 47.8 and
+# 15.1; at 2e-4 11.3-14.6, the last epoch at 5.0-6.0 below the first's
+# 12.6-13.7
 TRAIN_IMAGES = 96
+TRAIN_LR = 2e-4
 TRAIN_DIR = Path(__file__).resolve().parent / "_smoke"
 
 
@@ -1328,8 +1358,8 @@ def phase_train(dev):
         folders = {"image_folder": root / "images", "annotation_folder": root / "labels"}
         # the default warmup (1% of the steps) is 1 step of 20, and from
         # scratch at the peak lr the loss can diverge by the third step;
-        # 10 steps ramp the lr as 100 of the default 10,000 do
-        tc = cfg.TrainConfig(batch_size=32, max_num_steps=20, warmup=0.5)
+        # 10 steps ramp the lr to TRAIN_LR
+        tc = cfg.TrainConfig(batch_size=32, max_num_steps=20, warmup=0.5, lr=TRAIN_LR)
         train_loader, val_loader, _ = get_loaders(root, batch_size=32, anchors=cfg.TURBINE_ANCHORS,
                                                   num_workers=8, **folders)
         # the loader's host time per batch (decode + C++ augment + collate),
@@ -1360,11 +1390,14 @@ def phase_train(dev):
         count = {k: sum(k in r for r in rows) for k in ("lr", "train_loss", "val_loss", "mAP")}
         out["metrics_rows"] = count
         # eval-mode BN reads running statistics that 2 steps an epoch leave
-        # far behind the weights: the val loss may overflow (not gated)
+        # behind the weights: the val loss may overflow (not gated)
         out["val_loss_by_epoch"] = [r["val_loss"] if np.isfinite(r["val_loss"]) else "nan"
                                     for r in rows if "val_loss" in r]
+        train_losses = [r["train_loss"] for r in rows if "train_loss" in r]
+        out["train_loss_by_epoch"] = train_losses
         ok["metrics_rows"] = count == {"lr": 20, "train_loss": 10, "val_loss": 10, "mAP": 1} and all(
-            np.isfinite(r["train_loss"]) for r in rows if "train_loss" in r)
+            np.isfinite(train_losses))
+        ok["train_loss_falls"] = train_losses[-1] < train_losses[0]
 
         # the checkpoint back on the card, bit for bit
         ckpt = TRAIN_DIR / "models" / "best_model_smoke.ckpt"
@@ -1423,15 +1456,17 @@ FAMILIES_SIZE = 416
 
 
 def kernel_counts():
-    """K1, K2 and K4 launch counts so far."""
+    """K1 to K4 launch counts so far."""
     from yolo_for_turbines_tpu_torch.ops.kernels import (
+        iou_kernel,
         nms_kernel,
         resblock_int8_kernel,
         resblock_kernel,
     )
 
     return {"greedy_nms": nms_kernel.launches, "fused_residual_stage": resblock_kernel.launches,
-            "fused_residual_stage_int8": resblock_int8_kernel.launches}
+            "fused_residual_stage_int8": resblock_int8_kernel.launches,
+            "pairwise_iou": iou_kernel.launches}
 
 
 def zero_counts() -> None:
@@ -1459,7 +1494,8 @@ def family_path(pred, images, batches, out):
     drive(pred, images, batches, out)
     out["launches"] = kernel_counts()
     return out["launches_per_predict_batch"] == {"greedy_nms": 1, "fused_residual_stage": 0,
-                                                  "fused_residual_stage_int8": 0}
+                                                  "fused_residual_stage_int8": 0,
+                                                  "pairwise_iou": 0}
 
 
 @contextlib.contextmanager
@@ -1469,6 +1505,18 @@ def pinned_cudnn():
     turns on for the process) picked in this run."""
     saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def fresh_cudnn():
+    """cuDNN as a fresh process has it (heuristic choices, benchmark and
+    deterministic modes off), restored afterwards."""
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = False
     try:
         yield
     finally:
@@ -1659,7 +1707,15 @@ def families_training(dev, ok):
                                               > CSP_TRAIN_LOSS_RTOL)
 
     batch, size = 32, FAMILIES_SIZE
-    tc = cfg.TrainConfig(batch_size=batch, warmup_enabled=False)
+    # lr 1e-4, no warmup, 20 steps on one batch. At the default 1e-3 the
+    # loss ended at NaN in one of six runs of this script, which also failed
+    # the checkpoint-predictor equality on NaN weights; 5e-4 is the JAX
+    # package's stable CSP rate with warmup (benchmarks/RESULTS.md:800-823).
+    # tools/train_stability.py (--what steps --backbone cspdarknet53, 5
+    # processes, an H100; cuDNN's algorithms vary between processes), the
+    # largest loss after step 5: at 5e-4 6.9-7.7, at 2.5e-4 5.8-6.1 and
+    # 22.2 in one, at 1e-4 6.2-6.9
+    tc = cfg.TrainConfig(batch_size=batch, warmup_enabled=False, lr=1e-4)
     trainer = Trainer(tc, csp_cfg, device=dev)
     t0 = time.perf_counter()
     trainer.prewarm(sizes=(size,))
@@ -1718,7 +1774,8 @@ def families_training(dev, ok):
     make_fused_eval_step(tiny.model)(x, targets, cfg.TINY_ANCHORS)
     torch.cuda.synchronize()
     out["tiny_eval_step_launches"] = kernel_counts()
-    one_k1 = {"greedy_nms": 1, "fused_residual_stage": 0, "fused_residual_stage_int8": 0}
+    one_k1 = {"greedy_nms": 1, "fused_residual_stage": 0, "fused_residual_stage_int8": 0,
+              "pairwise_iou": 0}
     ok["eval_steps_launch_k1_once"] = (out["eval_step_launches"] == one_k1
                                        and out["tiny_eval_step_launches"] == one_k1)
     emit(out)
@@ -1743,6 +1800,368 @@ def phase_families(dev):
     emit({"phase": "families", "ok": ok, "seconds": time.perf_counter() - t0})
     require(all(ok.values()), f"families phase failed: {ok}")
     return paths
+
+
+# deploy phase: the bundle writer, the export CLI, the live and the exported
+# predictor, the demo. The 80-class Darknet-53 of phase eval's weights
+# (eval_model) as a darknet file written by the port, 416px.
+DEPLOY_DIR = TRAIN_DIR / "deploy"
+DEPLOY_BATCHES = (8, 128)
+DEPLOY_CALIB_IMAGES = 8
+# The exported program (the plain layer path, the plain NMS sweep) against
+# the live predictor of the same bundle built with fuse_resblocks=False (the
+# same layer path, K1 for the sweep): keep masks equal and boxes within
+# EXPORT_BOX_ATOL. Both read bit for bit equal, bf16 and int8, at B = 8 and
+# 128 (an H100): the same aten ops on the same weights, memory formats and
+# cuDNN choices. The exported program against the live predictor with its
+# kernels is printed beside it, not gated: K2 sums in another order, and
+# K4's epilogue multiplies by reciprocal scales where the layer path
+# divides, which moves a requant code at a .5 tie (0.4-0.9% of keep-mask
+# entries differ at B = 128).
+EXPORT_BOX_ATOL = 0.0
+# an exported program holds the program, not the weights: its file is at
+# most this share of the bundle's folded.npz
+EXPORT_MAX_WEIGHT_SHARE = 0.05
+
+
+def images_per_s(fn, x, iters: int) -> float:
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(x)
+    torch.cuda.synchronize()
+    return x.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def served_paths(live, ref, exported, control, batches, out):
+    """One bundle's serving: the live predictor loaded from it against the
+    predictor built in this process (``ref``), bit for bit, with its
+    launches per ``predict_batch``; each exported program (no launch,
+    outputs on the card) against ``control``; images/s of both. Returns
+    the checks and the launches per call of the live and the exported
+    predictor."""
+    ok = {}
+    launches, export_launches = [], []
+    for b, x in batches.items():
+        with pinned_cudnn():
+            zero_counts()
+            kl, ml = live.predict_batch(x)
+            torch.cuda.synchronize()
+            launches.append(kernel_counts())
+            kr, mr = ref.predict_batch(x)
+            ok[f"B{b}_live_equals_in_process"] = bool(torch.equal(kl, kr) and torch.equal(ml, mr))
+            kc, mc = control.predict_batch(x)
+            zero_counts()
+            ke, me = exported[b].predict_batch(x)
+            torch.cuda.synchronize()
+            export_launches.append(kernel_counts())
+        ok[f"B{b}_export_on_card"] = ke.is_cuda and me.is_cuda
+        ok[f"B{b}_export_masks_equal"] = bool(torch.equal(me, mc))
+        err = float((ke - kc).abs().max())
+        out[f"B{b}_export_box_max_abs_diff"] = err
+        out[f"B{b}_export_bit_equal"] = bool(torch.equal(ke, kc) and torch.equal(me, mc))
+        ok[f"B{b}_export_boxes"] = err <= EXPORT_BOX_ATOL
+        # beside it, not gated: against the live predictor with its kernels
+        out[f"B{b}_export_vs_live_masks_equal_share"] = float((me == ml).float().mean())
+        out[f"B{b}_survivors"] = int(ml.sum())
+        iters = 20 if b == 8 else 5
+        out[f"B{b}_live_images_per_s"] = images_per_s(live.predict_batch, x, iters)
+        out[f"B{b}_export_images_per_s"] = images_per_s(exported[b].predict_batch, x, iters)
+    out["launches_per_predict_batch"] = launches
+    out["export_launches_per_predict_batch"] = export_launches
+    return ok, launches, export_launches
+
+
+def calibration_images(folder: Path):
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 30)
+    folder.mkdir(parents=True, exist_ok=True)
+    for i in range(DEPLOY_CALIB_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
+            folder / f"calib_{i:03d}.jpg")
+    return sorted(folder.iterdir())
+
+
+def run_export_clis(args_by_kind) -> dict:
+    """``python -m yolo_for_turbines_tpu_torch.tools.export`` once per
+    argument list, all at once, each in a process of its own; their output
+    goes to stderr. Returns each call's wall time; a failed call raises."""
+    procs = {kind: subprocess.Popen(
+        [sys.executable, "-m", "yolo_for_turbines_tpu_torch.tools.export", *args],
+        cwd=Path(__file__).resolve().parent, stdout=sys.stderr, stderr=sys.stderr)
+        for kind, args in args_by_kind.items()}
+    t0, seconds = time.perf_counter(), {}
+    try:
+        while len(seconds) < len(procs):
+            for kind, p in procs.items():
+                if kind not in seconds and p.poll() is not None:
+                    seconds[kind] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = {kind: p.returncode for kind, p in procs.items()}
+    require(not any(codes.values()), f"tools.export failed: {codes}")
+    return {f"{kind}_export_cli_s": v for kind, v in seconds.items()}
+
+
+def phase_deploy(dev):
+    """The deployment path: tools.export writes a bf16 and an int8 bundle
+    (with exported programs at B = 8 and 128), load_predictor_bundle and
+    ExportedPredictor serve them, tools.demo draws one image."""
+    import contextlib as cl
+    import io
+    import re
+    import shutil
+
+    from PIL import Image
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch import inference
+    from yolo_for_turbines_tpu_torch.models.convert import trainable_to_numpy
+    from yolo_for_turbines_tpu_torch.models.darknet_weights import export_darknet_weights
+    from yolo_for_turbines_tpu_torch.serving import ExportedPredictor, load_predictor_bundle
+    from yolo_for_turbines_tpu_torch.tools import demo
+
+    model_cfg = cfg.ModelConfig()
+    ok, paths = {}, {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    try:
+        trainable = eval_model(dev, model_cfg, 416)
+        weights = DEPLOY_DIR / "yolov3.weights"
+        weights.parent.mkdir(parents=True, exist_ok=True)
+        export_darknet_weights(trainable.plan, *trainable_to_numpy(trainable), str(weights))
+        del trainable
+        calib_paths = calibration_images(DEPLOY_DIR / "calib")
+        _, batches = serving_inputs(dev)
+        export_args = [a for b in DEPLOY_BATCHES for a in ("--export-batch", str(b))]
+        out = {"phase": "deploy", "model": "darknet53 yolov3, 80 classes, 416px, phase eval's "
+               "weights as a darknet file", "gpu": gpu_line(), "export_box_atol": EXPORT_BOX_ATOL}
+        # tools.export as a user runs it, the two bundles in two processes at once
+        bundles = {kind: DEPLOY_DIR / f"bundle_{kind}" for kind in ("bf16", "int8")}
+        calib_args = {"bf16": [], "int8": ["--quantize-calib-dir", str(calib_paths[0].parent)]}
+        out.update(run_export_clis(
+            {kind: ["--weights", str(weights), "--out", str(bundle), *export_args,
+                    *calib_args[kind]] for kind, bundle in bundles.items()}))
+        for kind, bundle in bundles.items():
+            # the same predictor built in this process; the int8 one
+            # calibrated with cuDNN as a fresh process has it
+            ref = inference.load_predictor(weights, device=dev)
+            if kind == "int8":
+                imgs = [np.asarray(Image.open(p).convert("RGB")) for p in calib_paths]
+                with fresh_cudnn():
+                    ref.quantize(inference._letterbox_batch(imgs, ref.image_size, 0))
+            t0 = time.perf_counter()
+            live = load_predictor_bundle(bundle, dev)
+            out[f"{kind}_bundle_load_s"] = time.perf_counter() - t0
+            # the export's comparison: the live predictor of the same bundle
+            # on the plain layer path (fuse_resblocks=False: no K2, and no
+            # K4 operands packed); K1 still launches, bit-identical to the
+            # plain sweep
+            control = inference.Predictor.from_folded(
+                dataclasses.replace(live.model.cfg, fuse_resblocks=False), live._folded_input,
+                device=dev)
+            if kind == "int8":
+                control.set_qparams(live._qparams)
+            t0 = time.perf_counter()
+            exported = {b: ExportedPredictor(bundle, f"serve_b{b}_s416.pt2", device=dev)
+                        for b in DEPLOY_BATCHES}
+            out[f"{kind}_export_load_s"] = time.perf_counter() - t0
+            weight_bytes = (bundle / "folded.npz").stat().st_size
+            sizes = {p.name: p.stat().st_size for p in sorted((bundle / "exports").iterdir())}
+            out[f"{kind}_pt2_bytes"], out[f"{kind}_folded_npz_bytes"] = sizes, weight_bytes
+            ok[f"{kind}_pt2_holds_no_weights"] = max(sizes.values()) <= (
+                EXPORT_MAX_WEIGHT_SHARE * weight_bytes)
+            sub = {}
+            checks, launches, export_launches = served_paths(live, ref, exported, control,
+                                                             batches, sub)
+            out[kind] = sub
+            ok.update({f"{kind}_{k}": v for k, v in checks.items()})
+            want = {"greedy_nms": 1, "fused_residual_stage": 8 if kind == "bf16" else 0,
+                    "fused_residual_stage_int8": 8 if kind == "int8" else 0, "pairwise_iou": 0}
+            ok[f"{kind}_launches"] = all(c == want for c in launches)
+            ok[f"{kind}_export_launches_none"] = all(not any(c.values()) for c in export_launches)
+            name = "deploy" if kind == "bf16" else "deploy_int8"
+            paths[name] = {k: sum(c[k] for c in launches) for k in want}
+            paths.setdefault("deploy_export", {k: 0 for k in want})
+            for c in export_launches:
+                for k in want:
+                    paths["deploy_export"][k] += c[k]
+            del live, ref, control, exported
+            torch.cuda.empty_cache()
+
+        # the demo CLI on one image: K1 exactly once, the PNG at the image's
+        # size, the printed count equal to predict_image's
+        image_path, png = calib_paths[0], DEPLOY_DIR / "demo.png"
+        text = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(text):
+            demo.run_cli(["--weights", str(weights), "--image", str(image_path), "--out", str(png)])
+        torch.cuda.synchronize()
+        out["demo_s"] = time.perf_counter() - t0
+        paths["demo"] = kernel_counts()
+        printed = int(re.search(r"\((\d+) detections\)", text.getvalue()).group(1))
+        image = np.array(Image.open(image_path).convert("RGB"), dtype=np.uint8)
+        want_count = len(inference.load_predictor(weights, device=dev).predict_image(image))
+        out["demo"] = {"launches": paths["demo"], "detections": printed,
+                       "predict_image_detections": want_count,
+                       "png_size": list(Image.open(png).size)}
+        # predict_image is a bf16 predict_batch at B = 1: K1 once, K2 8 times
+        ok["demo_k1_once"] = paths["demo"] == {"greedy_nms": 1, "fused_residual_stage": 8,
+                                               "fused_residual_stage_int8": 0, "pairwise_iou": 0}
+        ok["demo_png_size"] = Image.open(png).size == (image.shape[1], image.shape[0])
+        ok["demo_count"] = printed == want_count
+    finally:
+        shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    out["ok"], out["seconds"] = ok, time.perf_counter() - t_phase
+    emit(out)
+    require(all(ok.values()), f"deploy phase failed: {ok}")
+    return paths
+
+
+# hpo phase: ASHA over the 2-class mish Darknet-53 that train() builds, at
+# 416px without multi-scale, on the train phase's synthetic set (the same
+# seed), with the anchors tools.anchors computes from its labels
+HPO_DIR = TRAIN_DIR / "hpo"
+HPO_LRS = (1e-4, 2e-4, 3e-4, 5e-4)
+
+
+class CardTrainFn:
+    """The HPO train function, recording after every rung the trial's
+    config, epochs, device, card, process, K1 launches so far and wall time
+    into ``log_dir`` (one JSON line per rung and process: the spawned
+    workers' resume state never reaches the parent)."""
+
+    def __init__(self, inner, log_dir):
+        self.inner, self.log_dir = inner, str(log_dir)
+
+    def __call__(self, config, num_epochs, resume_state):
+        import os
+
+        from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel
+
+        t0 = time.perf_counter()
+        score, state = self.inner(config, num_epochs, resume_state)
+        trainer, epoch = state[0], state[3]
+        dev = next(trainer.model.parameters()).device
+        row = {"lr": config["lr"], "epochs": epoch, "added": num_epochs, "score": score,
+               "device": str(dev), "card": torch.cuda.get_device_name(dev) if dev.type == "cuda"
+               else None, "pid": os.getpid(), "k1_launches": nms_kernel.launches,
+               "seconds": time.perf_counter() - t0}
+        with open(Path(self.log_dir) / f"rungs_{os.getpid()}.jsonl", "a") as f:
+            f.write(json.dumps(row) + "\n")
+        return score, state
+
+
+def phase_hpo(dev):
+    """tools.anchors on the synthetic labels, then tune_model over
+    make_hpo_train_fn: 4 trials in order (grace 1, max 4 epochs, 2
+    brackets), then 2 trials in 2 spawned workers."""
+    import shutil
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.data.loader import get_loaders
+    from yolo_for_turbines_tpu_torch.data.splits import create_csv_files
+    from yolo_for_turbines_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from yolo_for_turbines_tpu_torch.tools import anchors as anchors_cli
+    from yolo_for_turbines_tpu_torch.train.hpo import (
+        ASHAScheduler,
+        GridSearch,
+        load_config,
+        tune_model,
+    )
+    from yolo_for_turbines_tpu_torch.train.trainer import make_hpo_train_fn
+
+    ok = {}
+    out = {"phase": "hpo", "model": "darknet53 yolov3, 2 classes, mish, trainable, 416px"}
+    t_phase = time.perf_counter()
+    shutil.rmtree(HPO_DIR, ignore_errors=True)
+    try:
+        root = generate_synthetic_dataset(HPO_DIR / "data", num_images=TRAIN_IMAGES, seed=SEED)
+        create_csv_files(root / "images", root / "labels", root, {"train": 0.85, "val": 0.15},
+                         image_ext=".jpg")
+        anchors_json = HPO_DIR / "anchors.json"
+        with contextlib.redirect_stdout(sys.stderr):
+            anchors_cli.main(["--labels", str(root / "labels"), "--out", str(anchors_json)])
+        payload = json.loads(anchors_json.read_text())
+        anchors = np.asarray(payload["anchors"], np.float32)
+        out["anchors"], out["anchors_mean_iou"] = payload["anchors"], payload["mean_iou"]
+        ok["anchors_shape"] = anchors.shape == (3, 3, 2) and bool(np.isfinite(anchors).all())
+        folders = {"image_folder": root / "images", "annotation_folder": root / "labels"}
+        # the default warmup (1% of 10,000 steps) keeps the lr of these few
+        # steps far below its peak: no trial diverges from scratch
+        space = {"lr": GridSearch(HPO_LRS), "batch_size": 32, "multi_scale": False,
+                 "image_size": 416, "max_num_steps": 10_000}
+        val_batches = len(get_loaders(root, batch_size=32, anchors=anchors, num_workers=1,
+                                      **folders)[1])
+        out["val_batches"] = val_batches
+
+        # in order, in this process
+        logs = HPO_DIR / "logs"
+        logs.mkdir(parents=True)
+        fn = CardTrainFn(make_hpo_train_fn(root, HPO_DIR / "search", anchors=anchors,
+                                           num_workers=8, device=dev, **folders), logs)
+        sched = ASHAScheduler(grace_period=1, reduction_factor=2, brackets=2, max_t=4)
+        zero_counts()
+        t0 = time.perf_counter()
+        best = tune_model(fn, space, num_samples=4, model_folder_path=HPO_DIR / "search",
+                          grace_period=1, max_epochs=4, brackets=2, seed=SEED)
+        torch.cuda.synchronize()
+        out["search_s"] = time.perf_counter() - t0
+        launches = kernel_counts()
+        rows = [json.loads(line) for p in sorted(logs.iterdir()) for line in open(p)]
+        per_trial = {}
+        for r in rows:
+            per_trial.setdefault(r["lr"], []).append(r)
+        # trial i has HPO_LRS[i] (the grid's order) and bracket i % 2: its
+        # epochs after each rung are that bracket's budgets, in order
+        budgets = {}
+        for i, lr in enumerate(HPO_LRS):
+            ran = [r["epochs"] for r in per_trial.get(lr, [])]
+            want = [sched.rung_budget(i % 2, r) for r in range(len(ran))]
+            budgets[str(lr)] = {"epochs": ran, "budgets": want,
+                                "seconds": sum(r["seconds"] for r in per_trial.get(lr, []))}
+            ok[f"trial_{i}_epochs_are_rung_budgets"] = bool(ran) and ran == want
+        rungs = len(rows)
+        out["trials"], out["rungs"], out["launches"] = budgets, rungs, launches
+        out["best"] = best
+        ok["k1_per_val_batch_per_rung"] = (launches["greedy_nms"] >= val_batches * rungs
+                                           and launches["fused_residual_stage"] == 0)
+        ok["best_config_reads_back"] = load_config(HPO_DIR / "search",
+                                                   "best_config.json") == best["config"]
+        ok["trials_on_the_card"] = all(r["device"].startswith("cuda") for r in rows)
+
+        # two trials in two spawned workers
+        wlogs = HPO_DIR / "worker_logs"
+        wlogs.mkdir(parents=True)
+        wfn = CardTrainFn(make_hpo_train_fn(root, HPO_DIR / "workers", anchors=anchors,
+                                            num_workers=4, device="cuda", **folders), wlogs)
+        t0 = time.perf_counter()
+        wbest = tune_model(wfn, {**space, "lr": GridSearch(HPO_LRS[:2])}, num_samples=2,
+                           model_folder_path=HPO_DIR / "workers", grace_period=1, max_epochs=2,
+                           brackets=2, seed=SEED, max_concurrent=2)
+        out["workers_search_s"] = time.perf_counter() - t0
+        wrows = [json.loads(line) for p in sorted(wlogs.iterdir()) for line in open(p)]
+        out["workers"] = [{k: r[k] for k in ("lr", "epochs", "device", "card", "pid", "seconds",
+                                             "k1_launches")} for r in wrows]
+        ok["two_workers"] = len({r["pid"] for r in wrows}) == 2
+        ok["workers_on_the_card"] = all(
+            r["device"].startswith("cuda") and r["card"] == torch.cuda.get_device_name(0)
+            and r["k1_launches"] >= val_batches for r in wrows)
+        ok["workers_best_reads_back"] = load_config(HPO_DIR / "workers",
+                                                    "best_config.json") == wbest["config"]
+    finally:
+        shutil.rmtree(HPO_DIR, ignore_errors=True)
+    out["ok"], out["seconds"] = ok, time.perf_counter() - t_phase
+    emit(out)
+    require(all(ok.values()), f"hpo phase failed: {ok}")
+    return {"hpo": launches}
 
 
 def main() -> int:
@@ -1775,13 +2194,18 @@ def main() -> int:
     launches_eval, launches_fold = phase_eval(dev)
     launches_train = phase_train(dev)
     families = phase_families(dev)
+    deploy = phase_deploy(dev)
+    families.update(phase_hpo(dev))
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
                    "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
                    "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"],
-                   **{k: v["greedy_nms"] for k, v in families.items()}}
+                   **{k: v["greedy_nms"] for k, v in families.items()},
+                   **{k: v["greedy_nms"] for k, v in deploy.items()}}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
                    "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"],
-                   "train": launches_train["pairwise_iou"]}
+                   "train": launches_train["pairwise_iou"],
+                   **{k: v["pairwise_iou"] for k, v in families.items()},
+                   **{k: v["pairwise_iou"] for k, v in deploy.items()}}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -1797,7 +2221,10 @@ def main() -> int:
                               "eval": launches_eval["fused_residual_stage"],
                               "eval_fold": launches_fold["fused_residual_stage"],
                               "train": launches_train["fused_residual_stage"],
-                              **{k: v["fused_residual_stage"] for k, v in families.items()}},
+                              **{k: v["fused_residual_stage"] for k, v in families.items()},
+                              "deploy": deploy["deploy"]["fused_residual_stage"],
+                              "demo": deploy["demo"]["fused_residual_stage"],
+                              "deploy_export": deploy["deploy_export"]["fused_residual_stage"]},
          **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
@@ -1810,7 +2237,10 @@ def main() -> int:
          "replaces": "yolo_for_turbines_tpu/ops/pallas/resblock_int8_kernel.py:95",
          "launches": launches_int8["fused_residual_stage_int8"],
          "launches_by_path": {"main_int8": launches_int8["fused_residual_stage_int8"],
-                              **{k: v["fused_residual_stage_int8"] for k, v in families.items()}},
+                              **{k: v["fused_residual_stage_int8"] for k, v in families.items()},
+                              "deploy_int8": deploy["deploy_int8"]["fused_residual_stage_int8"],
+                              "deploy_export":
+                                  deploy["deploy_export"]["fused_residual_stage_int8"]},
          **k4},
     ]})
     print(gpu, flush=True)

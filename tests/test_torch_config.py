@@ -23,7 +23,7 @@ def test_model_config_fields_match_jax():
 @pytest.mark.parametrize(
     "name", ["ANCHORS", "DEF_IMAGE_SIZE", "CONF_THRESHOLD", "NMS_IOU_THRESHOLD",
              "STRIDES", "NUM_COCO_CLASSES", "MAP_IOU_THRESHOLD", "TURBINE_ANCHORS",
-             "TURBINE_LABELS", "NUM_TURBINE_CLASSES", "TINY_ANCHORS"])
+             "TURBINE_LABELS", "NUM_TURBINE_CLASSES", "TINY_ANCHORS", "COCO_LABELS"])
 def test_constants_match_jax(name):
     assert getattr(cfg, name) == getattr(jax_cfg, name)
 

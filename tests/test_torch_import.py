@@ -1,8 +1,10 @@
 """Torch port: importing it, serving with it (folded and int8; Darknet-53,
-CSPDarknet-53 and tiny; from a darknet file and a checkpoint), evaluating
-with it (``evaluate_map_device`` of the trainable module) and training with
-it (``train()``, the data layer, the darknet loader, the CLI module) imports
-neither jax nor any module of the JAX package (yolo_for_turbines_tpu).
+CSPDarknet-53 and tiny; from a darknet file and a checkpoint; from a bundle
+it writes and from the program it exports there; the demo CLI), tuning it
+(a toy ASHA search), evaluating with it (``evaluate_map_device`` of the
+trainable module) and training with it (``train()``, the data layer, the
+darknet loader, the CLI module) imports neither jax nor any module of the
+JAX package (yolo_for_turbines_tpu).
 
 Runs in a subprocess because this test process has jax loaded already
 (tests/conftest.py).
@@ -96,6 +98,28 @@ with tempfile.TemporaryDirectory() as tmp:
         Path(tmp) / "tiny.ckpt", activation="leaky_relu", anchors=TINY_ANCHORS, image_size=64,
         backbone="yolov3_tiny", device="cpu")
     assert bool(torch.isfinite(p.predict_batch(x)[0]).all())
+    # the deployment path: an int8 bundle with an exported program served
+    # from it, the demo CLI on the tiny file, a toy ASHA search
+    import json
+    from PIL import Image
+    from yolo_for_turbines_tpu_torch.tools import demo
+    from yolo_for_turbines_tpu_torch.train.hpo import Choice, tune_model
+    bundle = serving.save_predictor(pred, Path(tmp) / "bundle")
+    serving.add_export_to_bundle(bundle, batch_size=2, platforms=("cpu",))
+    exported = serving.ExportedPredictor(bundle, device="cpu").predict_batch(x)
+    live = serving.load_predictor_bundle(bundle, device="cpu").predict_batch(x)
+    assert torch.equal(exported[0], live[0]) and torch.equal(exported[1], live[1])
+    Image.fromarray(images[0]).save(Path(tmp) / "img.jpg")
+    (Path(tmp) / "anchors.json").write_text(json.dumps({"anchors": TINY_ANCHORS}))
+    demo.run_cli(["--weights", str(Path(tmp) / "tiny.weights"), "--backbone", "yolov3_tiny",
+                  "--num-classes", "2", "--anchors", str(Path(tmp) / "anchors.json"),
+                  "--image", str(Path(tmp) / "img.jpg"), "--out", str(Path(tmp) / "p.png"),
+                  "--device", "cpu"])
+    assert Image.open(Path(tmp) / "p.png").size == (80, 48)
+    best = tune_model(lambda c, n, r: (-abs(c["lr"] - 0.01), None),
+                      {"lr": Choice((0.1, 0.01))}, num_samples=2, model_folder_path=tmp,
+                      grace_period=1, max_epochs=2)
+    assert best["config"]["lr"] == 0.01
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
 assert not bad, bad

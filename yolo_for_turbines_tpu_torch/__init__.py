@@ -1,7 +1,10 @@
 """PyTorch + CUDA port of yolo_for_turbines_tpu: the 416px serving path
 (bf16 and int8 PTQ), the eval path (the trainable Darknet-53 in eval mode,
-the 4-term loss, decode, host and device mAP) and the training path (SGD
-steps, checkpoints, darknet weights, the numpy data layer, ``train()``).
+the 4-term loss, decode, host and device mAP), the training path (SGD
+steps, checkpoints, darknet weights, the numpy data layer, ``train()``),
+and the deployment and tuning entry points (serving bundles and their
+``torch.export`` programs, the export and demo CLIs, k-means anchors, ASHA
+hyperparameter search).
 
 The JAX package beside this one is the reference; module names mirror it
 (``models/yolov3.py``, ``ops/nms.py``, ``inference.py``, ...). Its four

@@ -51,7 +51,23 @@ STRIDES = (32, 16, 8)
 TURBINE_LABELS = ("dirt", "damage")
 NUM_TURBINE_CLASSES = len(TURBINE_LABELS)
 
-NUM_COCO_CLASSES = 80
+# reference: code/config.py:119-200
+COCO_LABELS = (
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella", "handbag",
+    "tie", "suitcase", "frisbee", "skis", "snowboard", "sports ball", "kite",
+    "baseball bat", "baseball glove", "skateboard", "surfboard",
+    "tennis racket", "bottle", "wine glass", "cup", "fork", "knife", "spoon",
+    "bowl", "banana", "apple", "sandwich", "orange", "broccoli", "carrot",
+    "hot dog", "pizza", "donut", "cake", "chair", "couch", "potted plant",
+    "bed", "dining table", "toilet", "tv", "laptop", "mouse", "remote",
+    "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
+    "refrigerator", "book", "clock", "vase", "scissors", "teddy bear",
+    "hair drier", "toothbrush",
+)
+NUM_COCO_CLASSES = len(COCO_LABELS)
 
 
 def grid_sizes_for(image_size: int, strides: Sequence[int] = STRIDES) -> tuple:
@@ -96,7 +112,9 @@ class ModelConfig:
     layer_config: Optional[tuple] = None
     # Inference: run the residual stages that ``stage_wins`` selects
     # through the fused residual-stage kernel (ops/kernels/resblock_kernel.py)
-    # on CUDA; the same arithmetic as the layer-by-layer path.
+    # on CUDA, and a quantized predictor's through the int8 one
+    # (ops/kernels/resblock_int8_kernel.py); the same arithmetic as the
+    # layer-by-layer path.
     fuse_resblocks: bool = True
     # The JAX package's space-to-depth stem layout, arithmetically the same
     # as the plain stem; the port runs the plain stem and ignores it.

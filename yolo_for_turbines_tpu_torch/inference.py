@@ -101,22 +101,29 @@ class Predictor:
         model = folded_from_numpy(build_plan(model_cfg), folded, model_cfg)
         return cls(model, device=device, folded=folded, **kwargs)
 
+    def full_precision_tree(self):
+        """The folded tree in full precision (JAX layout): the one
+        ``from_folded`` held or, for a predictor that computes in f32, its
+        module's weights. ``quantize`` starts from it and a bundle stores it
+        (``serving.save_predictor``); a module cast to another dtype has
+        lost it, and this raises."""
+        if self._folded_input is not None:
+            return self._folded_input
+        if self.compute_dtype != torch.float32:
+            raise ValueError(
+                "the full-precision weights are needed: build the predictor with "
+                "Predictor.from_folded (or pass folded=) when compute_dtype is "
+                f"{self.compute_dtype}")
+        return folded_to_numpy(self.model)
+
     def quantize(self, calib_batch) -> "Predictor":
         """Switch this predictor to the int8 PTQ path: calibrate activation
         scales on ``calib_batch`` ((N, S, S, 3) in [0, 1]) in f32 on the
         predictor's device from the full-precision folded tree, quantize the
         weights, and pack the serving operands once. Returns self."""
-        folded = self._folded_input
-        if folded is None:
-            if self.compute_dtype != torch.float32:
-                raise ValueError(
-                    "quantize() needs the full-precision weights: build the predictor "
-                    "with Predictor.from_folded (or pass folded=) when compute_dtype "
-                    f"is {self.compute_dtype}")
-            folded = folded_to_numpy(self.model)
         x = torch.as_tensor(calib_batch, dtype=torch.float32).to(self.device)
         self.set_qparams(quantize_folded(
-            self.model.plan, folded, x, self.model.cfg.activation))
+            self.model.plan, self.full_precision_tree(), x, self.model.cfg.activation))
         return self
 
     def set_qparams(self, qparams) -> None:
@@ -124,9 +131,12 @@ class Predictor:
         ``models/convert.py::qparams_from_numpy`` output on this device);
         the scale chain and the fused kernel's operands are packed here,
         once, for every image size: each ``predict_batch`` routes its
-        residual stages on the shape of its own batch."""
+        residual stages on the shape of its own batch. With
+        ``fuse_resblocks=False`` no operands are packed for the fused
+        kernel, and every stage takes the int8 layer path."""
         self._qparams = qparams
-        self._packed = pack_int8(self.model.plan, qparams, self.compute_dtype)
+        self._packed = pack_int8(self.model.plan, qparams, self.compute_dtype,
+                                 kernel_operands=self.model.fuse_resblocks)
 
     def raw_heads(self, x) -> List[torch.Tensor]:
         """Raw NHWC heads, coarsest first, in ``compute_dtype``: the int8

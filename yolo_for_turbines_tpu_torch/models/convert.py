@@ -10,7 +10,8 @@ its stats ``{mean, var}``; a head's last 1x1 holds ``{w, b}`` and its stats
 are None. ``fold_params`` (``models/yolov3.py``) gives ``{w, b}`` for every
 conv. Leaves may be numpy arrays (also bf16 ones), torch tensors, or
 anything ``np.asarray`` takes. Both packages then compute the same function
-from the same numbers.
+from the same numbers. ``qparams_to_numpy`` gives the port's int8 tree back
+in the JAX layout, for the bundle writer (``serving.py``).
 """
 
 from __future__ import annotations
@@ -278,3 +279,36 @@ def qparams_from_numpy(plan: Plan, qtree, device) -> dict:
     if scales.dim() != 1:
         raise ValueError(f"quantized scales must be a vector, got {tuple(scales.shape)}")
     return {"layers": out, "scales": scales}
+
+
+# the JAX package's key order of a quantized CSP stage (``quantize_folded``;
+# its heads pass through ``tree_map``, which sorts keys): a bundle's spec and
+# npz keys follow the tree's order
+_Q_CSP_KEYS = ("split1", "split2", "blocks", "transition", "fuse")
+
+
+def qparams_to_numpy(plan: Plan, qparams) -> dict:
+    """Inverse of :func:`qparams_from_numpy`: the port's ``qparams`` as the
+    JAX package's quantized tree, numpy on the host, in its structure and
+    key order: int8 codes, f32 scales and biases, f32 head weights, ``{}``
+    for the weightless entries and an f32 ``scales`` vector. The bundle
+    writer stores it as ``quantized.npz``."""
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [host(v) for v in t]
+        return t.detach().to("cpu").numpy().copy()
+
+    layers = qparams["layers"]
+    if len(layers) != len(plan):
+        raise ValueError(f"quantized tree has {len(layers)} entries, plan {len(plan)}")
+    out = []
+    for entry, p in zip(plan, layers):
+        if isinstance(entry, PlanCSP):
+            p = {k: p[k] for k in _Q_CSP_KEYS}
+        elif isinstance(entry, PlanHead):
+            p = {k: dict(sorted(p[k].items())) for k in ("conv1", "conv2")}
+        out.append(host(p))
+    return {"layers": out, "scales": host(qparams["scales"])}

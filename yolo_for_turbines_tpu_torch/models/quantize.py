@@ -323,15 +323,16 @@ def _run_conv(q, xq, activation: str, xb=None):
                      extra=(_conv_i8(xb, q["wb"], *geom), q["db"]))
 
 
-def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
+def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool = True) -> list:
     """Walk the plan once over ``qparams`` and fold the calibrated scale
     chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
     tensors for the layer path (weights as views of ``qparams``' where no
     padding is needed), K4's stacked operands and its K-major weight copies
     for every ``use_residual`` stage whose channel count the kernel takes
     (C = 512: one stage of Darknet-53; None elsewhere, CSP blocks
-    included), head weights in ``compute_dtype``. Nothing here depends on
-    the image size: each call of ``apply_inference_int8`` routes such a
+    included, and everywhere with ``kernel_operands=False``), head weights
+    in ``compute_dtype``. Nothing here depends on the image size: each
+    call of ``apply_inference_int8`` routes such a
     stage to K4 or to the layer path on its own shape, as the JAX function
     does. The scales are drawn in the JAX function's order and its f32
     arithmetic is kept; everything stays on the qparams' device."""
@@ -361,7 +362,7 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16) -> list:
             # the stream interleaves (s1, s2) per block
             pairs = [(scale(), scale()) for _ in p["blocks"]]
             s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
-            fusable = entry.use_residual and entry.channels == KERNEL_C
+            fusable = kernel_operands and entry.use_residual and entry.channels == KERNEL_C
             stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if fusable else None
             q = {"blocks": pack_int8_blocks(p["blocks"], s_x, s1_list, s2_list,
                                             entry.use_residual),
@@ -431,14 +432,16 @@ def apply_inference_int8(
     x: (B, S, S, 3) float in [0, 1] on the qparams' device. Returns one head
     per scale, coarsest first: raw NHWC heads in ``compute_dtype`` with
     ``raw_heads``, else (B, A, S, S, 5+C) f32. ``portable=True`` skips the
-    fused-stage router, which otherwise decides on this call's shapes.
-    ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``, made here
-    when not given. ``head_inputs``, when a
-    list, receives per head the s8 trunk tensors it reads (two for a concat
-    head), so a caller can check what the int8 trunk decided."""
+    fused-stage router, which otherwise decides on this call's shapes, and
+    runs no kernel: the hermetic serve module (``serving.py``) is traced
+    through it. ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``,
+    made here when not given (without K4's operands when portable).
+    ``head_inputs``, when a list, receives per head the s8 trunk tensors it
+    reads (two for a concat head), so a caller can check what the int8
+    trunk decided."""
     act = get_activation(activation)
     if packed is None:
-        packed = pack_int8(plan, qparams, compute_dtype)
+        packed = pack_int8(plan, qparams, compute_dtype, kernel_operands=not portable)
 
     with torch.inference_mode():
         xq = _requant(torch.as_tensor(x).float(), packed[0]["s_in"])

@@ -54,11 +54,11 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     On CUDA ``torch._int_mm`` wants M > 16 and K, N multiples of 8; operands
     that miss those are zero-padded (the stem's 3*3*3 = 27) and the result
-    is sliced back."""
+    is sliced back. The padding is done on every device (the products are
+    exact either way), so that a program traced on the CPU
+    (``serving.export_serving_module``) runs on the card too."""
     m, k = a.shape
     n = b.shape[1]
-    if a.device.type != "cuda":
-        return torch._int_mm(a, b)
     pm, pk, pn = max(0, 17 - m), -k % 8, -n % 8
     if pk or pm:
         a = F.pad(a, (0, pk, 0, pm))

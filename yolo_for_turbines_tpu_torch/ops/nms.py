@@ -9,7 +9,9 @@
 
 CUDA tensors run step 2 in the fused kernel at every batch size and every
 K (``max_boxes`` may be the number of candidates, as a reference-style
-``non_max_suppression`` asks); CPU tensors take its plain torch version.
+``non_max_suppression`` asks); CPU tensors take its plain torch version,
+and so does every device with ``portable=True`` (the hermetic serve module
+of ``serving.py``, which carries no kernel).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .kernels.nms_kernel import greedy_nms
+from .kernels.nms_kernel import greedy_nms, greedy_nms_reference
 
 
 def _top_k_candidates(boxes: torch.Tensor, obj_threshold: float, max_boxes: int):
@@ -33,14 +35,16 @@ def _top_k_candidates(boxes: torch.Tensor, obj_threshold: float, max_boxes: int)
 
 
 def batched_nms(boxes: torch.Tensor, iou_threshold: float, obj_threshold: float,
-                max_boxes: int = 256, box_format: str = "center"
+                max_boxes: int = 256, box_format: str = "center", portable: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, N, 6) [cx, cy, w, h, score, class] -> ((B, K, 6), (B, K) bool).
 
     Rows are sorted by descending score; rows whose mask is False are
-    padding or suppressed."""
+    padding or suppressed. ``portable`` takes the plain sweep on every
+    device (bit-identical to the kernel)."""
     cand, valid = _top_k_candidates(boxes, obj_threshold, max_boxes)
-    return cand, greedy_nms(cand, valid, iou_threshold, box_format=box_format)
+    nms = greedy_nms_reference if portable else greedy_nms
+    return cand, nms(cand, valid, iou_threshold, box_format=box_format)
 
 
 def nms_single(boxes: torch.Tensor, iou_threshold: float, obj_threshold: float,

@@ -11,18 +11,11 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-from typing import Dict
 
 from ..config import TrainConfig
 from ..utils.seed import seed_everything
+from .hpo import load_config
 from .trainer import train
-
-
-def load_config(model_folder, config_name: str) -> Dict:
-    """The "config" entry of a best_config.json written by HPO (reference:
-    code/train.py:286-289)."""
-    with open(Path(model_folder) / config_name) as f:
-        return json.load(f)["config"]
 
 
 def main(argv=None):

@@ -20,14 +20,15 @@ Documented divergence (kept from the JAX package): the reference computes
 here anchors are scaled by the actual batch's grid size, consistent with
 the target encoding.
 
-``Trainer`` and ``train()`` run on ``device``, ``"cuda"`` unless the caller
-asks for the CPU; with no CUDA device they raise. The HPO adapter
-(``HPOTrainFn``) and data parallelism wait for later slices of the port.
+``Trainer``, ``train()`` and the ASHA adapter ``HPOTrainFn`` run on
+``device``, ``"cuda"`` unless the caller asks for the CPU; with no CUDA
+device they raise. Data parallelism waits for a later slice of the port.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import time
 from pathlib import Path
@@ -44,7 +45,7 @@ from ..models.yolov3 import YOLOv3
 from ..ops.map import calc_map, calc_map_device_batched
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
-from .evaluate import make_fused_eval_step, rows_from_eval_step
+from .evaluate import evaluate_map, make_fused_eval_step, rows_from_eval_step
 from .metrics import MetricsLogger
 from .steps import (
     compute_dtype_of,
@@ -262,6 +263,110 @@ class Trainer:
         return avg.get("val_loss", 0.0), mAP
 
 
+def _train_config(config) -> TrainConfig:
+    """A TrainConfig from a config mapping (its TrainConfig keys) or as is."""
+    if isinstance(config, TrainConfig):
+        return config
+    return TrainConfig(**{k: v for k, v in config.items() if k in TrainConfig.__dataclass_fields__})
+
+
+class HPOTrainFn:
+    """Picklable adapter for the ASHA driver (``train/hpo.py::tune_model``).
+
+    Calling trains ``num_epochs`` *additional* epochs and evaluates mAP at
+    the end of the budget (``evaluate_map``: K1 once per val batch on the
+    card), carrying ``(trainer, loaders, logger, epoch)`` across rungs so
+    promoted trials resume instead of restarting (reference
+    code/train.py:153,252-270). Picklability is what lets
+    ``tune_model(max_concurrent>1)`` ship it to spawned trial workers; the
+    resume state then lives inside each worker process. Trials run on
+    ``device`` (``"cuda"`` unless the caller asks for the CPU; it raises
+    without a card).
+    """
+
+    def __init__(
+        self,
+        csv_folder_path,
+        model_folder_path,
+        image_folder=None,
+        annotation_folder=None,
+        anchors=cfg.TURBINE_ANCHORS,
+        weights_path=None,
+        num_workers: int = 8,
+        device="cuda",
+    ):
+        self.csv_folder_path = csv_folder_path
+        self.model_folder_path = model_folder_path
+        self.image_folder = image_folder
+        self.annotation_folder = annotation_folder
+        self.anchors = np.asarray(anchors, np.float32)
+        self.weights_path = weights_path
+        self.num_workers = num_workers
+        self.device = str(resolve_device(device, "HPOTrainFn"))
+
+    def __call__(self, config, num_epochs, resume_state):
+        if resume_state is None:
+            tc = _train_config(config)
+            trainer = Trainer(tc, anchors=self.anchors, weights_path=self.weights_path,
+                              device=self.device)
+            loaders = get_loaders(
+                self.csv_folder_path,
+                batch_size=tc.batch_size,
+                anchors=self.anchors,
+                train=True,
+                image_folder=self.image_folder,
+                annotation_folder=self.annotation_folder,
+                num_workers=self.num_workers,
+                mosaic=tc.mosaic,
+                cache_images=tc.cache_images,
+                image_size=tc.image_size,
+                strides=trainer.model.strides,
+            )
+            cfg_repr = str(sorted(config.items()) if isinstance(config, dict) else config)
+            # stable across processes (unlike hash(), which is salted by
+            # PYTHONHASHSEED) so trial logs keep one name under HPO resume
+            trial_id = hashlib.sha1(cfg_repr.encode()).hexdigest()[:8]
+            logger = MetricsLogger(f"hpo_trial_{trial_id}", out_dir=self.model_folder_path)
+            epoch = 0
+        else:
+            trainer, loaders, logger, epoch = resume_state
+        train_loader, val_loader, train_ds = loaders
+
+        for _ in range(num_epochs):
+            trainer.train_one_epoch(train_ds, train_loader, logger)
+            epoch += 1
+        mAP = evaluate_map(val_loader, trainer.model, trainer.anchors,
+                           num_classes=trainer.model_cfg.num_classes,
+                           compute_dtype=trainer.compute_dtype)
+        logger.log({"mAP": mAP, "epoch": epoch})
+        return mAP, (trainer, loaders, logger, epoch)
+
+
+def make_hpo_train_fn(
+    csv_folder_path,
+    model_folder_path,
+    image_folder=None,
+    annotation_folder=None,
+    anchors=cfg.TURBINE_ANCHORS,
+    weights_path=None,
+    num_workers: int = 8,
+    device="cuda",
+):
+    """Build the picklable HPOTrainFn adapter (see HPOTrainFn). mAP is
+    evaluated once per ASHA rung boundary: the rung budget is the eval
+    cadence, as in the reference's session.report flow."""
+    return HPOTrainFn(
+        csv_folder_path,
+        model_folder_path,
+        image_folder=image_folder,
+        annotation_folder=annotation_folder,
+        anchors=anchors,
+        weights_path=weights_path,
+        num_workers=num_workers,
+        device=device,
+    )
+
+
 def train(
     hyperparam_config,
     csv_folder_path,
@@ -281,16 +386,7 @@ def train(
 ) -> float:
     """Reference-parity train() entry (code/train.py:158-239). Returns best mAP."""
     device = resolve_device(device, "training")
-    if isinstance(hyperparam_config, TrainConfig):
-        tc = hyperparam_config
-    else:
-        tc = TrainConfig(
-            **{
-                k: v
-                for k, v in hyperparam_config.items()
-                if k in TrainConfig.__dataclass_fields__
-            }
-        )
+    tc = _train_config(hyperparam_config)
     # the anchors belong in the run config (the reference logs its whole
     # hyperparam dict, code/train.py:164): a custom-anchor run must be
     # auditable from the metrics file alone
