@@ -129,6 +129,25 @@ Phases, one JSON line each:
           once per val batch per rung, best_config.json read back by
           load_config; then 2 trials in 2 spawned workers, both on the card;
           wall time per trial and per search.
+  parallel  DP and SP (parallel/). World size 1 over NCCL in this process:
+          the DP Predictor (80-class Darknet-53, 416px) bit for bit as the
+          plain one with cuDNN pinned, bf16 at B = 8 and 128 and int8 at
+          128, K1 once and K2 / K4 8 times per call; the DP train step of
+          the 2-class mish model (synced BN, global loss counts, the
+          gradient all-reduce) against the plain step: float32 at B = 8
+          within the train phase's gates, float64 at B = 2 (updates within
+          1e-8), and the bf16 steps at B = 32 timed in turns beside the
+          plain step's. Two gloo ranks spawned on the one card: DP at B =
+          16, each rank's 8 rows bit for bit as the single-process predictor
+          on the same images, K1 once and K2 8 times per rank; SP with
+          n_space = 2 of the float32 and bf16 folded model at 832px (every
+          scale sharded) and 416px (the deepest grids gathered): heads
+          against the single-process f32 forward (f32 1e-4, bf16
+          HEAD_RTOL), the SP predictor, its int8 form (calibrated on 8
+          seeded images, halos of s8 codes) against the plain int8 layer
+          path on the same qparams (cosine per raw head), no kernel
+          launched, the SP forward's ms. Then the peak memory of bf16 predict_batch at B = 1
+          for 416 to 3328px and B = 8 at 1664px.
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -2164,6 +2183,357 @@ def phase_hpo(dev):
     return {"hpo": launches}
 
 
+PARALLEL_DIR = TRAIN_DIR / "parallel"
+# two gloo ranks on the one card: DP serves B = PAR_DP_BATCH, half per rank;
+# SP shards the rows of one image 2-way at each of PAR_SP_SIZES (832px: 26
+# rows at the deepest grid, so every scale stays sharded; 416px: 13 rows,
+# so the deepest grids are gathered)
+PAR_DP_BATCH = 16
+PAR_SP_SIZES = (832, 416)
+# SP heads against the single-process forward, relative RMS per head, f32
+# (TF32 off): the halo'd convs sum the same terms as the unsharded ones, in
+# cuDNN's order for another input height
+PAR_SP_HEAD_RTOL_F32 = 1e-4
+# (B, px) of the bf16 predict_batch peak-memory sweep
+PAR_MEMORY_POINTS = ((1, 416), (1, 832), (1, 1664), (1, 3328), (8, 1664))
+# the DP train step at world size 1 against the plain step, float64 on the
+# card: the updates' relative distance over all parameters (an exact
+# gradient reads float64 rounding)
+PAR_F64_UPDATE_RTOL = 1e-8
+PAR_RANK_DEADLINE_S = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def update_distance(after: dict, want: dict, before: dict) -> float:
+    """Relative distance of two updates (new - old) over every parameter."""
+    keys = [k for k in want if k in before]
+    got = torch.cat([(after[k].double() - before[k].double()).flatten() for k in keys])
+    ref = torch.cat([(want[k].double() - before[k].double()).flatten() for k in keys])
+    return float((got - ref).norm() / ref.norm())
+
+
+def dp_train_step_checks(dev, mesh, out) -> dict:
+    """The DP train step at world size 1 (synced BN, global loss counts,
+    the gradient all-reduce over NCCL) against the plain step from the same
+    weights: float32 at B = 8 within the train phase's gates, float64 at B
+    = 2 within PAR_F64_UPDATE_RTOL, and the bf16 steps at B = 32 timed in
+    turns (plain, DP, DP, plain)."""
+    import copy
+
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3
+    from yolo_for_turbines_tpu_torch.tools.profile_serving import train_batch
+    from yolo_for_turbines_tpu_torch.train import steps
+
+    ok = {}
+    base = YOLOv3(cfg.ModelConfig(num_classes=2, activation="mish"),
+                  generator=torch.Generator().manual_seed(SEED + 7))
+    anchors = torch.from_numpy(cfg.scaled_anchors_array(cfg.TURBINE_ANCHORS, 416)).to(dev)
+    before = {k: v.clone() for k, v in base.state_dict().items()}
+    params = {n for n, _ in base.named_parameters()}
+
+    def one(dtype, batch, step_mesh):
+        model = copy.deepcopy(base).to(dev, dtype, memory_format=torch.channels_last)
+        tc = cfg.TrainConfig(lr=1e-2, warmup_enabled=False, compute_dtype="float32")
+        state = steps.create_train_state(model, tc)
+        x, targets = train_batch(batch, 416, dev, seed=SEED + 8)
+        with tf32_on():  # the step must turn it off
+            m = steps.make_train_step(tc, step_mesh)(state, x.to(dtype), targets, anchors)
+        return ({k: float(v) for k, v in m.items()},
+                {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+    with pinned_cudnn():
+        (m_p, s_p), (m_d, s_d) = one(torch.float32, 8, None), one(torch.float32, 8, mesh)
+        out["f32_B8_loss_rel_err"] = {k: abs(m_d[k] - m_p[k]) / abs(m_p[k]) for k in m_p}
+        upd = {k: s_d[k].double() - before[k].double() for k in params}
+        upd_p = {k: s_p[k].double() - before[k].double() for k in params}
+        out["f32_B8_update_rel_rms_worst"] = leaf_rel_rms(upd, upd_p)
+        stats = {k: v for k, v in s_d.items() if k.endswith(("running_mean", "running_var"))}
+        out["f32_B8_stats_rel_rms_worst"] = leaf_rel_rms(stats, {k: s_p[k] for k in stats})
+        ok["dp_f32_step_as_plain"] = (max(out["f32_B8_loss_rel_err"].values()) <= TRAIN_LOSS_RTOL
+                                      and out["f32_B8_update_rel_rms_worst"][0] <= TRAIN_UPDATE_RTOL
+                                      and out["f32_B8_stats_rel_rms_worst"][0] <= TRAIN_STATS_RTOL)
+        (_, s64_p), (_, s64_d) = one(torch.float64, 2, None), one(torch.float64, 2, mesh)
+        out["f64_B2_update_distance"] = update_distance(
+            {k: s64_d[k] for k in params}, {k: s64_p[k] for k in params}, before)
+        ok["dp_f64_step_as_plain"] = out["f64_B2_update_distance"] <= PAR_F64_UPDATE_RTOL
+
+    # bf16 autocast at B = 32: time of the DP wrapper at world size 1
+    tc = cfg.TrainConfig(lr=1e-4, warmup_enabled=False)
+    x, targets = train_batch(32, 416, dev, seed=SEED + 9)
+    runs = {}
+    for name, step_mesh in (("plain", None), ("dp", mesh)):
+        model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)
+        state = steps.create_train_state(model, tc)
+        step = steps.make_train_step(tc, step_mesh)
+        runs[name] = (state, step)
+        for _ in range(3):  # warm up
+            step(state, x, targets, anchors)
+
+    def timed(name):
+        state, step = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(state, x, targets, anchors)["loss"] for _ in range(10)]
+        torch.cuda.synchronize()
+        ok[f"bf16_{name}_losses_finite"] = bool(torch.isfinite(torch.stack(losses)).all())
+        return (time.perf_counter() - t0) * 1e3 / 10
+
+    p1, d1, d2, p2 = timed("plain"), timed("dp"), timed("dp"), timed("plain")
+    out["bf16_B32_step_ms"] = {"plain": [p1, p2], "dp_world1": [d1, d2]}
+    return ok
+
+
+def parallel_world_one(dev, out) -> dict:
+    """World size 1 over NCCL in this process: the DP predictor (bf16 at B
+    = 8 and 128, int8 at 128) bit for bit as the plain one, K1 once and K2
+    or K4 8 times per call; the DP train step."""
+    import torch.distributed as dist
+
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.parallel.mesh import create_mesh
+
+    ok = {}
+    launches = {k: 0 for k in kernel_counts()}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = create_mesh(device=dev)
+        out["backend"] = dist.get_backend(mesh.group)
+        model_cfg, _, tree = full_model()
+        _, batches = serving_inputs(dev)
+        calib = np.random.default_rng(SEED + 1).uniform(size=(8, 416, 416, 3)).astype(np.float32)
+        with pinned_cudnn():
+            plain = Predictor.from_folded(model_cfg, tree, device=dev)
+            dp = Predictor.from_folded(model_cfg, tree, mesh=mesh)
+            for kind in ("bf16", "int8"):
+                if kind == "int8":
+                    plain.quantize(calib)
+                    dp.quantize(calib)
+                for b, x in batches.items():
+                    if kind == "int8" and b != 128:
+                        continue
+                    want = plain.predict_batch(x)
+                    zero_counts()
+                    got = dp.predict_batch(x)
+                    torch.cuda.synchronize()
+                    counts = kernel_counts()
+                    for k, v in counts.items():
+                        launches[k] += v
+                    fused = "fused_residual_stage" + ("_int8" if kind == "int8" else "")
+                    out[f"{kind}_B{b}_launches"] = counts
+                    ok[f"dp_{kind}_B{b}_bit_for_bit"] = (torch.equal(got[0], want[0])
+                                                         and torch.equal(got[1], want[1]))
+                    ok[f"dp_{kind}_B{b}_launches"] = (counts["greedy_nms"] == 1
+                                                      and counts[fused] == 8)
+        del plain, dp
+        torch.cuda.empty_cache()
+        ok.update(dp_train_step_checks(dev, mesh, out))
+    finally:
+        dist.destroy_process_group()
+    return ok, launches
+
+
+def parallel_rank(rank: int, world: int, port: int, device: str, results) -> None:
+    """One of two gloo ranks on the one card (spawned): the DP predictor
+    at B = PAR_DP_BATCH, its rows bit for bit as the single-process
+    predictor's on the same images, with its kernel launches; the SP
+    forward and predictor at PAR_SP_SIZES (no kernel may launch)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        from yolo_for_turbines_tpu_torch.inference import Predictor
+        from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+        from yolo_for_turbines_tpu_torch.ops import kernels
+        from yolo_for_turbines_tpu_torch.parallel.mesh import create_mesh
+        from yolo_for_turbines_tpu_torch.parallel.spatial import (
+            Layout,
+            create_spatial_mesh,
+            spatial_image_sharding,
+        )
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        kernels.load_library()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=180))
+        res = {"rank": rank, "ok": {}}
+        model_cfg, plan, tree = full_model()
+        rng = np.random.default_rng(SEED + 21)
+        x = torch.from_numpy(rng.uniform(size=(PAR_DP_BATCH, 416, 416, 3)).astype(np.float32))
+        mine = slice(rank * PAR_DP_BATCH // world, (rank + 1) * PAR_DP_BATCH // world)
+        with pinned_cudnn():
+            mesh = create_mesh(device=dev)
+            plain = Predictor.from_folded(model_cfg, tree, device=dev)
+            dp = Predictor.from_folded(model_cfg, tree, mesh=mesh)
+            want = plain.predict_batch(x[mine].to(dev))
+            zero_counts()
+            got = dp.predict_batch(x.to(dev))
+            torch.cuda.synchronize()
+            res["dp_launches"] = kernel_counts()
+            res["ok"]["dp_whole_batch_on_every_rank"] = tuple(got[0].shape) == (PAR_DP_BATCH, K, 6)
+            res["ok"]["dp_rows_bit_for_bit"] = (torch.equal(got[0][mine], want[0])
+                                               and torch.equal(got[1][mine], want[1]))
+            res["ok"]["dp_launches"] = (res["dp_launches"]["greedy_nms"] == 1
+                                        and res["dp_launches"]["fused_residual_stage"] == 8)
+            del plain, dp
+
+            sp_mesh = create_spatial_mesh(n_space=world, device=dev)
+            layout = Layout(sp_mesh)
+            f32 = folded_from_numpy(plan, tree, model_cfg).to(
+                dev, memory_format=torch.channels_last).eval()
+            bf16 = folded_from_numpy(plan, tree, model_cfg).to(
+                dev, torch.bfloat16, memory_format=torch.channels_last).eval()
+            bf16.fuse_resblocks = False
+            sp_pred = Predictor.from_folded(model_cfg, tree, mesh=sp_mesh,
+                                            compute_dtype=torch.float32)
+            # int8 under SP (the layer path with halos of s8 codes) against
+            # the plain int8 layer path on the same qparams
+            calib = np.random.default_rng(SEED + 1).uniform(
+                size=(8, 416, 416, 3)).astype(np.float32)
+            sp8 = Predictor.from_folded(model_cfg, tree, mesh=sp_mesh)
+            sp8.quantize(calib)
+            ref8 = Predictor.from_folded(dataclasses.replace(model_cfg, fuse_resblocks=False),
+                                         tree, device=dev)
+            ref8.set_qparams(sp8._qparams)
+            res["sp"], res["sp_launches"] = {}, {k: 0 for k in kernel_counts()}
+            for size in PAR_SP_SIZES:
+                img = torch.from_numpy(rng.uniform(size=(1, size, size, 3)).astype(np.float32))
+                shard = spatial_image_sharding(sp_mesh).place(img)
+                r = {}
+                with torch.inference_mode():
+                    ref = f32(img.to(dev))
+                    ref_int8 = ref8.raw_heads(img)
+                    zero_counts()
+                    heads = f32(shard, layout=layout)
+                    heads16 = bf16(shard, layout=layout)
+                    kept, mask = sp_pred.predict_batch(img)
+                    heads8 = sp8.raw_heads(img)
+                    kept8, _ = sp8.predict_batch(img)
+                    torch.cuda.synchronize()
+                    for k, v in kernel_counts().items():
+                        res["sp_launches"][k] += v
+                    r["f32_head_rel_rms"] = [rel_rms(h.float().cpu(), g.float().cpu())
+                                             for h, g in zip(heads, ref)]
+                    r["bf16_head_rel_rms"] = [rel_rms(h.float().cpu(), g.float().cpu())
+                                              for h, g in zip(heads16, ref)]
+                    r["int8_head_cos"] = [cosine(h.float().cpu(), g.float().cpu())
+                                          for h, g in zip(heads8, ref_int8)]
+                    r["int8_forward_ms"] = cuda_ms(lambda: sp8.raw_heads(img), 3)
+                    r["f32_forward_ms"] = cuda_ms(lambda: f32(shard, layout=layout), 3)
+                    r["bf16_forward_ms"] = cuda_ms(lambda: bf16(shard, layout=layout), 3)
+                    r["plain_f32_forward_ms"] = cuda_ms(lambda: f32(img.to(dev)), 3)
+                res["ok"][f"sp_{size}_f32_heads"] = max(r["f32_head_rel_rms"]) <= PAR_SP_HEAD_RTOL_F32
+                res["ok"][f"sp_{size}_bf16_heads"] = max(r["bf16_head_rel_rms"]) <= HEAD_RTOL
+                res["ok"][f"sp_{size}_predictor"] = (tuple(kept.shape) == (1, K, 6)
+                                                     and bool(torch.isfinite(kept).all())
+                                                     and mask.dtype == torch.bool)
+                res["ok"][f"sp_{size}_int8"] = (min(r["int8_head_cos"]) >= INT8_HEAD_COS
+                                                and tuple(kept8.shape) == (1, K, 6)
+                                                and bool(torch.isfinite(kept8).all()))
+                res["sp"][size] = r
+            res["ok"]["sp_no_kernel"] = not any(res["sp_launches"].values())
+        dist.destroy_process_group()
+        results.put(res)
+    except BaseException:
+        import traceback
+
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def parallel_two_ranks(out, device: str) -> tuple:
+    """Spawn the two gloo ranks and collect their results; a rank that
+    fails, or no result within PAR_RANK_DEADLINE_S, fails the phase."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, 2, port, device, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + PAR_RANK_DEADLINE_S
+    try:
+        while len(got) < 2:
+            try:
+                r = results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"parallel ranks gave {len(got)} of 2 results in "
+                                     f"{PAR_RANK_DEADLINE_S} s") from None
+            if "error" in r:
+                raise AssertionError(f"parallel rank {r['rank']} failed:\n{r['error']}")
+            got[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ok = {f"rank{r}_{k}": v for r in got for k, v in got[r]["ok"].items()}
+    out["ranks"] = {r: {k: got[r][k] for k in ("dp_launches", "sp_launches", "sp")}
+                    for r in got}
+    dp = {k: sum(got[r]["dp_launches"][k] for r in got) for k in got[0]["dp_launches"]}
+    sp = {k: sum(got[r]["sp_launches"][k] for r in got) for k in got[0]["sp_launches"]}
+    return ok, dp, sp
+
+
+def memory_sweep(dev, out) -> None:
+    """Peak device memory of one bf16 predict_batch of the plain predictor
+    at PAR_MEMORY_POINTS (B, px): where one card runs out, and SP becomes
+    necessary, is extrapolated from these points."""
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+
+    model_cfg, _, tree = full_model()
+    pred = Predictor.from_folded(model_cfg, tree, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out["memory"] = {}
+    for b, size in PAR_MEMORY_POINTS:
+        x = torch.rand(b, size, size, 3, device=dev, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pred.predict_batch(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["memory"][f"B{b}_{size}px"] = {"peak_gb": peak / 1e9,
+                                           "above_resident_gb": (peak - resident) / 1e9}
+        del x
+
+
+def phase_parallel(dev):
+    """DP and SP (parallel/): world size 1 over NCCL in this process, then
+    two gloo ranks on the one card, then the memory sweep."""
+    out = {"phase": "parallel", "model": "darknet53 yolov3, 80 classes (serving), 2 classes "
+           "mish (train step)"}
+    t_phase = time.perf_counter()
+    ok, world1 = parallel_world_one(dev, out)
+    t0 = time.perf_counter()
+    ranks_ok, dp, sp = parallel_two_ranks(out, str(dev))
+    out["two_ranks_s"] = time.perf_counter() - t0
+    ok.update(ranks_ok)
+    memory_sweep(dev, out)
+    out["ok"], out["seconds"] = ok, time.perf_counter() - t_phase
+    emit(out)
+    require(all(ok.values()), f"parallel phase failed: {ok}")
+    return {"parallel_dp": {k: world1[k] + dp[k] for k in dp}, "parallel_sp": sp}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2196,16 +2566,19 @@ def main() -> int:
     families = phase_families(dev)
     deploy = phase_deploy(dev)
     families.update(phase_hpo(dev))
+    par = phase_parallel(dev)
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
                    "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
                    "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"],
                    **{k: v["greedy_nms"] for k, v in families.items()},
-                   **{k: v["greedy_nms"] for k, v in deploy.items()}}
+                   **{k: v["greedy_nms"] for k, v in deploy.items()},
+                   **{k: v["greedy_nms"] for k, v in par.items()}}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
                    "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"],
                    "train": launches_train["pairwise_iou"],
                    **{k: v["pairwise_iou"] for k, v in families.items()},
-                   **{k: v["pairwise_iou"] for k, v in deploy.items()}}
+                   **{k: v["pairwise_iou"] for k, v in deploy.items()},
+                   **{k: v["pairwise_iou"] for k, v in par.items()}}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -2224,7 +2597,8 @@ def main() -> int:
                               **{k: v["fused_residual_stage"] for k, v in families.items()},
                               "deploy": deploy["deploy"]["fused_residual_stage"],
                               "demo": deploy["demo"]["fused_residual_stage"],
-                              "deploy_export": deploy["deploy_export"]["fused_residual_stage"]},
+                              "deploy_export": deploy["deploy_export"]["fused_residual_stage"],
+                              **{k: v["fused_residual_stage"] for k, v in par.items()}},
          **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
@@ -2240,7 +2614,8 @@ def main() -> int:
                               **{k: v["fused_residual_stage_int8"] for k, v in families.items()},
                               "deploy_int8": deploy["deploy_int8"]["fused_residual_stage_int8"],
                               "deploy_export":
-                                  deploy["deploy_export"]["fused_residual_stage_int8"]},
+                                  deploy["deploy_export"]["fused_residual_stage_int8"],
+                              **{k: v["fused_residual_stage_int8"] for k, v in par.items()}},
          **k4},
     ]})
     print(gpu, flush=True)

@@ -193,3 +193,64 @@ def test_port_trains_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+PARALLEL_SCRIPT = r"""
+import datetime
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from yolo_for_turbines_tpu_torch.config import ModelConfig, TrainConfig
+from yolo_for_turbines_tpu_torch.inference import Predictor
+from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3, build_plan, init_plan
+from yolo_for_turbines_tpu_torch.parallel import (
+    create_mesh, create_spatial_mesh, shard_batch, shard_spatial_batch)
+from yolo_for_turbines_tpu_torch.train.steps import create_train_state, make_train_step
+
+sys.path.insert(0, "tests")
+from helpers import MINI_LAYERS  # plain data, no jax
+
+torch.set_num_threads(1)
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+    x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    targets = tuple(np.zeros((2, 3, 64 // s, 64 // s, 6), np.float32) for s in (32, 16, 8))
+    anchors = torch.ones(3, 3, 2)
+    tree = init_plan(build_plan(cfg), torch.Generator().manual_seed(0))
+    for mesh, shard in ((create_mesh(device="cpu"), None),
+                        (create_spatial_mesh(device="cpu"), shard_spatial_batch)):
+        assert mesh.group is not None  # the collectives run, over gloo
+        pred = Predictor.from_folded(cfg, tree, mesh=mesh, image_size=64, max_boxes=8)
+        kept, mask = pred.predict_batch(x)
+        assert tuple(kept.shape) == (2, 8, 6) and bool(torch.isfinite(kept).all())
+        model = YOLOv3(cfg, generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, TrainConfig(compute_dtype="float32"))
+        xs, ys = (shard_batch((x, targets), mesh) if shard is None
+                  else shard(x, targets, mesh))
+        m = make_train_step(TrainConfig(compute_dtype="float32"), mesh)(state, xs, ys, anchors)
+        assert np.isfinite(float(m["loss"]))
+    dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "yolo_for_turbines_tpu"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_runs_data_and_spatial_parallelism_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

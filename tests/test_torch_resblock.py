@@ -259,3 +259,59 @@ def test_wrapper_rejects_misshapen_kmajor_weights():
     with pytest.raises(ValueError, match="K-major"):
         rk._check_cuda_args(x, w1s, b1s, w2s, b2s, "leaky_relu",
                             (good[0], good[1].transpose(1, 2)))
+
+
+@pytest.mark.parametrize("write", ["mul_", "copy_"])
+def test_routed_call_serves_weights_written_in_place(write):
+    # a stage routed once (its stacked copies made), then one block's 1x1
+    # weight doubled in place: the next routed call must serve the new
+    # weights, as the layer path does (before the copies were keyed on each
+    # weight's storage and version, it returned the old output, 1.47
+    # max-abs off the layer path)
+    stage = _filled_stage(512, 1, torch.float32)
+    act = get_activation("leaky_relu")
+    x = torch.from_numpy(_rand((1, 512, 16, 16), 5))
+    with torch.inference_mode():
+        first = stage(x, act, "leaky_relu", fuse=True)
+    assert stage._stacked is not None
+    w = stage.blocks[0]["conv1"].weight
+    with torch.no_grad():
+        if write == "mul_":
+            w.mul_(2.0)
+        else:
+            w.copy_(w * 2.0)
+    with torch.inference_mode():
+        routed = stage(x, act, "leaky_relu", fuse=True)
+        layers = stage(x, act, "leaky_relu", fuse=False)
+    assert not torch.allclose(routed, first)
+    # the two paths sum 256 and 9 * 256 terms in different orders: measured
+    # 1.1e-5 max-abs apart (one element of 131072 past ATOL); the stale
+    # copies were 1.47 apart
+    np.testing.assert_allclose(routed.numpy(), layers.numpy(), rtol=RTOL, atol=5e-5)
+
+
+def test_drop_kernel_copies_forgets_a_stage_written_behind_torchs_back():
+    # a write that leaves _version as it was (a collective writing the
+    # storage directly) is the caller's to report: drop_kernel_copies()
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.models.yolov3 import FoldedYOLOv3
+
+    model = FoldedYOLOv3(ModelConfig(num_classes=2), plan=(PlanResidual(512, 1),))
+    stage = model.layers[0]
+    stage.stacked()
+    assert stage._stacked is not None
+    model.drop_kernel_copies()
+    assert stage._stacked is None and stage._kmajor is None
+
+
+def test_routed_call_of_a_stage_made_in_inference_mode():
+    # weights made under inference_mode have no version counter: the
+    # routed call must still serve them (as the layer path does)
+    act = get_activation("leaky_relu")
+    x = torch.from_numpy(_rand((1, 512, 16, 16), 6))
+    with torch.inference_mode():
+        stage = _filled_stage(512, 1, torch.float32)
+        routed = stage(x, act, "leaky_relu", fuse=True)
+        layers = stage(x, act, "leaky_relu", fuse=False)
+    assert stage._stacked is not None
+    np.testing.assert_allclose(routed.numpy(), layers.numpy(), rtol=RTOL, atol=5e-5)

@@ -97,6 +97,41 @@ def scaled_anchors_array(anchors, image_size: int = DEF_IMAGE_SIZE) -> np.ndarra
 
 
 @dataclasses.dataclass(frozen=True)
+class Paths:
+    """Filesystem layout (reference: code/config.py:22-33)."""
+
+    project: str = "."
+
+    @property
+    def image_folder(self) -> Path:
+        return Path(self.project) / "data" / "images"
+
+    @property
+    def annotation_folder(self) -> Path:
+        return Path(self.project) / "data" / "labels"
+
+    @property
+    def weights_folder(self) -> Path:
+        return Path(self.project) / "weights"
+
+    @property
+    def model_folder(self) -> Path:
+        return Path(self.project) / "models"
+
+    @property
+    def csv_folder(self) -> Path:
+        return Path(self.project) / "data"
+
+    @property
+    def coco_weights(self) -> Path:
+        return self.weights_folder / "yolov3.weights"
+
+    @property
+    def darknet_weights(self) -> Path:
+        return self.weights_folder / "darknet53.conv.74"
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture knobs."""
 

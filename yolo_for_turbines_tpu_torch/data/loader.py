@@ -147,9 +147,11 @@ class DataLoader:
             t.join(timeout=5.0)
 
 
-def prefetch_to_device(iterator, device, size: int = 2):
+def prefetch_to_device(iterator, device, size: int = 2, sharding=None):
     """Yield the batches ``(images, targets)`` of ``iterator`` as tensors on
-    ``device``, ``size`` batches ahead of the consumer.
+    ``device``, ``size`` batches ahead of the consumer. ``sharding``, a
+    function of the host batch, picks the part of it this rank places (its
+    shard on a mesh: ``train/trainer.py``); only that part is copied.
 
     On CUDA each batch is copied into pinned host memory and sent with
     ``non_blocking=True`` on a side stream, so its copy overlaps the steps
@@ -160,7 +162,7 @@ def prefetch_to_device(iterator, device, size: int = 2):
     stream = torch.cuda.Stream(device) if cuda else None
 
     def put(batch):
-        images, targets = batch
+        images, targets = batch if sharding is None else sharding(batch)
         arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (images, *targets)]
         if not cuda:
             return arrays, None

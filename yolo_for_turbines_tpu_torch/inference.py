@@ -20,6 +20,25 @@ alone. ``load_predictor`` builds a predictor from a darknet weight file,
 ``load_predictor_from_checkpoint`` from a checkpoint of the port's
 trainer; both run on ``device``, ``"cuda"`` unless the caller asks for the
 CPU, and raise without a card.
+
+``mesh=`` (``parallel/``) serves on a mesh of ranks, every rank handed the
+same global batch, as the JAX ``Predictor(mesh=)``:
+
+- data parallelism (``create_mesh``, ``create_multislice_mesh``): each
+  rank serves its rows of the batch with the kernels unchanged (K1, K2 and
+  K4, like the JAX ``shard_map`` branch), then the survivors are
+  all-gathered, so ``predict_batch`` returns the whole batch on every rank.
+  B must be a multiple of the mesh's size (``pad_batch_to_multiple``);
+- spatial partitioning (``create_spatial_mesh``): each rank holds its rows
+  of its data shard's images, convs exchange halo rows, the heads are
+  gathered and decode and NMS run replicated over ``"space"``. As in the
+  JAX spatial branch, and as in the portable export, no kernel runs: the
+  fused stages are not routed (``fuse_resblocks=False``, which also packs
+  no K4 operands), the int8 path takes its layer path with halos of s8
+  codes, and NMS takes its plain sweep.
+
+Replicas are made identical when the predictor is built (rank 0's weights
+broadcast, ``sync_replicas``), so every rank of the mesh builds it.
 """
 
 from __future__ import annotations
@@ -38,6 +57,9 @@ from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
 from .models.yolov3 import FoldedYOLOv3, YOLOv3, build_plan
 from .ops.decode import decode_raw_all
 from .ops.nms import batched_nms, nms_to_list
+from .parallel import comm
+from .parallel.mesh import batch_group, batch_sharding, tree_map
+from .parallel.spatial import Layout, is_spatial, spatial_image_sharding
 from .utils.device import resolve_device
 
 
@@ -58,13 +80,15 @@ class Predictor:
     """A folded model on a device plus the serving knobs.
 
     ``compute_dtype`` defaults to bf16 on CUDA and float32 on the CPU.
+    ``device`` is the mesh's device when ``mesh`` is given (module
+    docstring).
     """
 
     def __init__(
         self,
         model: FoldedYOLOv3,
         *,
-        device,
+        device=None,
         anchors=cfg.ANCHORS,
         image_size: int = cfg.DEF_IMAGE_SIZE,
         conf_threshold: float = cfg.CONF_THRESHOLD,
@@ -72,8 +96,21 @@ class Predictor:
         max_boxes: int = 256,
         compute_dtype=None,
         folded=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            if not mesh.active:
+                raise ValueError(f"rank {mesh.rank} is idle on this mesh of {mesh.size} ranks")
+            device = mesh.device
+        if device is None:
+            raise TypeError("Predictor needs a device (or a mesh)")
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._layout = Layout(mesh) if is_spatial(mesh) else None
+        if self._layout is not None:
+            model.fuse_resblocks = False  # no kernel under SP
         # the full-precision folded tree (JAX layout) quantize() starts from:
         # int8 scales and codes must not compound the compute-dtype cast
         # below. from_folded hands over its tree (held, not copied); without
@@ -93,9 +130,23 @@ class Predictor:
         self.conf_threshold = conf_threshold
         self.nms_iou_threshold = nms_iou_threshold
         self.max_boxes = max_boxes
+        if mesh is not None:
+            self.sync_replicas()
+
+    def sync_replicas(self) -> None:
+        """Overwrite every rank's weights (and int8 operands) with rank 0's:
+        a broadcast over the mesh, then the kernels' weight copies dropped.
+        A broadcast writes each weight's storage directly and leaves its
+        ``_version`` as it was, so the fused stages would not notice it by
+        themselves. Every rank of the mesh calls it."""
+        comm.broadcast_module(self.model, self.mesh.group)
+        self.model.drop_kernel_copies()
+        if self._qparams is not None:
+            self.set_qparams(self._qparams)
 
     @classmethod
-    def from_folded(cls, model_cfg: ModelConfig, folded, *, device, **kwargs) -> "Predictor":
+    def from_folded(cls, model_cfg: ModelConfig, folded, *, device=None,
+                    **kwargs) -> "Predictor":
         """Build from a folded tree in the JAX layout (``YOLOv3.fold`` output
         as numpy arrays; see ``models/convert.py``)."""
         model = folded_from_numpy(build_plan(model_cfg), folded, model_cfg)
@@ -133,43 +184,69 @@ class Predictor:
         once, for every image size: each ``predict_batch`` routes its
         residual stages on the shape of its own batch. With
         ``fuse_resblocks=False`` no operands are packed for the fused
-        kernel, and every stage takes the int8 layer path."""
+        kernel, and every stage takes the int8 layer path. On a mesh rank
+        0's tree is broadcast first, so every replica serves the same
+        codes."""
+        if self.mesh is not None:
+            tree_map(lambda t: comm.broadcast_(t, self.mesh.group)
+                     if isinstance(t, torch.Tensor) else t, qparams)
         self._qparams = qparams
         self._packed = pack_int8(self.model.plan, qparams, self.compute_dtype,
                                  kernel_operands=self.model.fuse_resblocks)
 
+    def _shard(self, x) -> torch.Tensor:
+        """This rank's part of a global batch, on the device: its rows (DP)
+        or its rows of its data shard's images (SP); all of it without a
+        mesh."""
+        x = torch.as_tensor(x)
+        if self.mesh is not None:
+            sharding = spatial_image_sharding if self._layout else batch_sharding
+            x = sharding(self.mesh).take(x)
+        return x.to(self.device)
+
+    def _heads(self, x) -> List[torch.Tensor]:
+        if self._qparams is None:
+            return self.model(x, layout=self._layout)
+        return apply_inference_int8(
+            self.model.plan, self._qparams, x, activation=self.model.cfg.activation,
+            raw_heads=True, compute_dtype=self.compute_dtype, packed=self._packed,
+            layout=self._layout,
+        )
+
     def raw_heads(self, x) -> List[torch.Tensor]:
         """Raw NHWC heads, coarsest first, in ``compute_dtype``: the int8
-        forward once quantized, else the folded forward."""
+        forward once quantized, else the folded forward. On a mesh, the
+        heads of this rank's rows of the global batch ``x`` (whole images
+        under SP)."""
         with torch.inference_mode():
-            x = torch.as_tensor(x).to(self.device)
-            if self._qparams is None:
-                return self.model(x)
-            return apply_inference_int8(
-                self.model.plan, self._qparams, x, activation=self.model.cfg.activation,
-                raw_heads=True, compute_dtype=self.compute_dtype, packed=self._packed,
-            )
+            return self._heads(self._shard(x))
 
     def predict_batch(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, S, 3) float in [0, 1], numpy or tensor.
 
-        Returns ((B, K, 6), (B, K) bool) tensors on the predictor's device."""
+        Returns ((B, K, 6), (B, K) bool) tensors on the predictor's device;
+        on a mesh, the whole batch's on every rank."""
         with torch.inference_mode():
-            x = torch.as_tensor(x).to(self.device)
             grid_sizes = cfg.grid_sizes_for(x.shape[1], self.model.strides)
+            x = self._shard(x)
             scaled_anchors = torch.from_numpy(
                 self.anchors * np.asarray(grid_sizes, np.float32).reshape(-1, 1, 1)
             ).to(self.device)
-            raw = self.raw_heads(x)
+            raw = self._heads(x)
             boxes = decode_raw_all(
                 raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
             )
-            return batched_nms(
+            kept, mask = batched_nms(
                 boxes,
                 iou_threshold=self.nms_iou_threshold,
                 obj_threshold=self.conf_threshold,
                 max_boxes=self.max_boxes,
+                portable=self._layout is not None,
             )
+            if self.mesh is not None:
+                group = batch_group(self.mesh)
+                kept, mask = comm.all_gather(kept, group), comm.all_gather(mask, group)
+            return kept, mask
 
     def predict_images(
         self, np_images: List[np.ndarray], num_threads: int = 0

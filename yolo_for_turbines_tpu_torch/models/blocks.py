@@ -94,10 +94,18 @@ class ConvBlock(nn.Module):
             if not bn:
                 self.conv.bias.copy_((torch.rand(out_ch, generator=generator) * 2 - 1) * bound)
 
-    def forward(self, x, act=None):
-        y = self.conv(x)
-        if self.bn is not None:
-            y = self.bn(y)
+    def forward(self, x, act=None, rows=None):
+        """``rows`` (``parallel/spatial.py::Rows``) runs the conv with its
+        halo and the BN with the moments of the mesh's batch."""
+        if rows is None:
+            y = self.conv(x)
+            if self.bn is not None:
+                y = self.bn(y)
+        else:
+            c = self.conv
+            y = rows.conv(x, c.weight, c.bias, c.stride[0], c.padding[0])
+            if self.bn is not None:
+                y = rows.bn(self.bn, y)
         return act(y) if act is not None else y
 
     def folded(self) -> Dict:
@@ -130,8 +138,11 @@ class FoldedConv(nn.Module):
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
 
-    def forward(self, x, act=None):
-        y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
+    def forward(self, x, act=None, rows=None):
+        if rows is None:
+            y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
+        else:
+            y = rows.conv(x, self.weight, self.bias, self.stride, self.padding)
         return act(y) if act is not None else y
 
 
@@ -145,15 +156,20 @@ def maxpool2d(x, kernel: int, stride: int):
     1; SAME for stride 1, which pads k - 1 rows and columns, (k - 1) // 2
     before and the rest after (bottom and right only for a 2-wide window:
     torch's symmetric ``padding=`` cannot express it). Float tensors pad
-    with -inf and pool with ``F.max_pool2d``; integer tensors (the int8
-    path's s8 codes) pad with their dtype's minimum and take the maximum of
-    the k * k strided views, which every device supports, and keep their
-    dtype."""
+    with -inf, integer tensors (the int8 path's s8 codes) with their dtype's
+    minimum (``pool_valid``)."""
     if stride == 1:
         before = (kernel - 1) // 2
         after = kernel - 1 - before
         fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
         x = F.pad(x, (before, after, before, after), value=fill)
+    return pool_valid(x, kernel, stride)
+
+
+def pool_valid(x, kernel: int, stride: int):
+    """NCHW max pool with no padding. Float tensors pool with
+    ``F.max_pool2d``; integer tensors take the maximum of the k * k strided
+    views, which every device supports, and keep their dtype."""
     if x.is_floating_point():
         return F.max_pool2d(x, kernel, stride)
     h = (x.shape[2] - kernel) // stride + 1

@@ -84,14 +84,14 @@ def conv_shapes(entry: PlanCSP) -> dict:
             "fuse": (2 * bc, c, 1), "conv1": (bc, hc, 1), "conv2": (hc, bc, 3)}
 
 
-def _forward(stage, x, act):
+def _forward(stage, x, act, rows=None):
     """``apply_csp_entry``'s order, shared by both modules."""
-    shortcut = stage.split1(x, act)
-    y = stage.split2(x, act)
+    shortcut = stage.split1(x, act, rows)
+    y = stage.split2(x, act, rows)
     for blk in stage.blocks:
-        y = y + blk["conv2"](blk["conv1"](y, act), act)
-    y = stage.transition(y, act)
-    return stage.fuse(torch.cat([y, shortcut], dim=1), act)
+        y = y + blk["conv2"](blk["conv1"](y, act, rows), act, rows)
+    y = stage.transition(y, act, rows)
+    return stage.fuse(torch.cat([y, shortcut], dim=1), act, rows)
 
 
 class TrainableCSPStage(nn.Module):
@@ -116,8 +116,8 @@ class TrainableCSPStage(nn.Module):
         self.transition = conv("transition")
         self.fuse = conv("fuse")
 
-    def forward(self, x, act):
-        return _forward(self, x, act)
+    def forward(self, x, act, rows=None):
+        return _forward(self, x, act, rows)
 
 
 class CSPStage(nn.Module):
@@ -137,8 +137,8 @@ class CSPStage(nn.Module):
         self.transition = FoldedConv(*shapes["transition"])
         self.fuse = FoldedConv(*shapes["fuse"])
 
-    def forward(self, x, act):
-        return _forward(self, x, act)
+    def forward(self, x, act, rows=None):
+        return _forward(self, x, act, rows)
 
 
 def map_stage(stage, fn) -> dict:

@@ -208,15 +208,33 @@ def _wmat(wq) -> torch.Tensor:
     return F.pad(m, (0, 0, 0, pad)) if pad else m.contiguous()
 
 
-def _conv_i8(xq, wmat, kernel: int, stride: int, pad: int):
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
+def _conv_i8(xq, wmat, kernel: int, stride: int, pad: int, rows=None):
     """NHWC s8 x ``_wmat`` s8 -> NHWC i32, exact like XLA's int32 conv:
     im2col in (kh, kw, Cin) order (``unfold`` views, one copy into a buffer
-    whose padding columns are zero), then ``int_mm``."""
+    whose padding columns are zero), then ``int_mm``. A row shard
+    (``rows``, ``parallel/spatial.py::Rows``) takes its halo rows of codes
+    from its neighbours in place of the row padding (code 0 at the image's
+    edges, as the padding)."""
     b, h, w, c = xq.shape
     kp, n = wmat.shape
     if kernel == 1 and stride == 1 and kp == c:
         return int_mm(xq.reshape(-1, c), wmat).view(b, h, w, n)
-    if pad:
+    if pad and rows is not None and rows.sharded:
+        from ..parallel.spatial import halo
+
+        xq = _nhwc(halo(_nchw(xq), pad, pad if stride == 1 else 0, 0,
+                        rows.layout.space_group))
+        xq = F.pad(xq, (0, 0, pad, pad))
+        b, h, w, c = xq.shape
+    elif pad:
         xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
     win = xq.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (B, Ho, Wo, C, kh, kw)
     ho, wo = win.shape[1], win.shape[2]
@@ -252,7 +270,7 @@ def _epilogue(y32, d, b, s_out, activation, residual=None, extra=None):
     return y.div_(s_out).round_().clamp_(-127, 127).to(torch.int8)
 
 
-def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu"):
+def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu", rows=None):
     """A quantized residual stage layer by layer (the path of every stage
     the fused kernel is not routed to): per block an int8 1x1 and 3x3 conv,
     each with its f32 epilogue. ``blocks`` from :func:`pack_int8_blocks`."""
@@ -260,7 +278,7 @@ def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu"):
         t1 = _epilogue(_conv_i8(xq, bq["w1"], 1, 1, 0), bq["d1"], bq["b1"], bq["s1"],
                        activation)
         res = (xq, bq["rs"]) if bq["rs"] is not None else None
-        xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1), bq["d2"], bq["b2"], bq["s2"],
+        xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1, rows), bq["d2"], bq["b2"], bq["s2"],
                        activation, residual=res)
     return xq
 
@@ -312,11 +330,11 @@ def _pack_conv(p, kernel: int, stride: int, s_in, s_out, split=None) -> dict:
     return q
 
 
-def _run_conv(q, xq, activation: str, xb=None):
+def _run_conv(q, xq, activation: str, xb=None, rows=None):
     """The conv of :func:`_pack_conv` on s8 codes: one int8 conv and its
     epilogue, or with ``xb`` (the second branch of a split conv) two int8
     convs dequant-summed in one epilogue."""
-    geom = q["kernel"], q["stride"], q["pad"]
+    geom = q["kernel"], q["stride"], q["pad"], rows
     if xb is None:
         return _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"], activation)
     return _epilogue(_conv_i8(xq, q["wa"], *geom), q["da"], q["b"], q["s_out"], activation,
@@ -426,6 +444,7 @@ def apply_inference_int8(
     portable: bool = False,
     packed: Optional[list] = None,
     head_inputs: Optional[list] = None,
+    layout=None,
 ):
     """int8 twin of the folded forward over ``quantize_folded`` output.
 
@@ -438,35 +457,52 @@ def apply_inference_int8(
     made here when not given (without K4's operands when portable).
     ``head_inputs``, when a list, receives per head the s8 trunk tensors it
     reads (two for a concat head), so a caller can check what the int8
-    trunk decided."""
+    trunk decided. ``layout`` (``parallel/spatial.py::Layout``) runs the
+    forward on the rank's rows of a spatial mesh, laid out by its policy,
+    the s8 codes' halos exchanged before each 3x3 conv and the SAME pool,
+    the heads gathered; it takes the layer path (``portable`` is implied)."""
     act = get_activation(activation)
+    if layout is not None:
+        portable = True
     if packed is None:
         packed = pack_int8(plan, qparams, compute_dtype, kernel_operands=not portable)
 
+    def relay(fn, t, rows, *args):
+        """A layout step of ``layout`` on an NHWC tensor."""
+        t, rows = fn(_nchw(t), rows, *args)
+        return _nhwc(t), rows
+
     with torch.inference_mode():
         xq = _requant(torch.as_tensor(x).float(), packed[0]["s_in"])
+        rows = None
+        if layout is not None:
+            xq, rows = relay(lambda t, _: layout.enter(t), xq, None)
         preds, routes = [], []
         pending = None  # (upsampled trunk, route) of an upsample concat
         for entry, q in zip(plan, packed[1:]):
             if isinstance(entry, PlanConv):
                 if pending is not None:
-                    xq = _run_conv(q, pending[0], activation, xb=pending[1])
+                    xq = _run_conv(q, pending[0], activation, xb=pending[1], rows=rows)
                     pending = None
                 else:
-                    xq = _run_conv(q, xq, activation)
+                    if rows is not None:
+                        xq, rows = relay(layout.fit, xq, rows, entry.stride)
+                    xq = _run_conv(q, xq, activation, rows=rows)
+                if rows is not None:
+                    xq, rows = relay(layout.constrain, xq, rows)
             elif isinstance(entry, PlanResidual):
                 fused = None
                 if q["stage"] is not None and not portable:
                     fused = apply_residual_stage_int8_fused(q["stage"], xq, activation,
                                                             kmajor=q["stage_kmajor"])
                 xq = fused if fused is not None else residual_blocks_int8(
-                    xq, q["blocks"], activation)
+                    xq, q["blocks"], activation, rows)
                 if entry.save_route:
                     routes.append(xq)
             elif isinstance(entry, PlanCSP):
                 shortcut = _run_conv(q["split1"], xq, activation)
                 yq = residual_blocks_int8(_run_conv(q["split2"], xq, activation), q["blocks"],
-                                          activation)
+                                          activation, rows)
                 yq = _run_conv(q["transition"], yq, activation)
                 xq = _run_conv(q["fuse"], yq, activation, xb=shortcut)
                 if entry.save_route:
@@ -478,15 +514,23 @@ def apply_inference_int8(
                     head_inputs.append(trunk)
                 parts = [(t.float() * s).to(compute_dtype) for t, s in zip(
                     trunk, (q["s_a"], q["s_b"]) if len(trunk) == 2 else (q["s"],))]
-                xf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-                y = F.conv2d(xf.permute(0, 3, 1, 2), q["w1"], padding=1)
+                xf = _nchw(parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1))
+                if rows is None:
+                    y = F.conv2d(xf, q["w1"], padding=1)
+                else:
+                    y = rows.conv(xf, q["w1"], None, 1, 1)
                 y = act(y + q["b1"][:, None, None])
                 y = F.conv2d(y, q["w2"]) + q["b2"][:, None, None]
-                y = y.permute(0, 2, 3, 1)
+                if rows is not None:
+                    y = layout.gather(y, rows)
+                y = _nhwc(y)
                 preds.append(y if raw_heads else _head_reshape(
                     y, entry.num_classes, entry.anchors_per_scale))
             elif isinstance(entry, PlanUpsample):
                 up, route = _upsample2x(xq), routes.pop()
+                if rows is not None:
+                    # the route was laid out at this height by the same rule
+                    up, rows = relay(layout.constrain, up, rows)
                 if "s_out" in q:  # "requant": one tensor at one scale
                     xq = _requant(torch.cat([up.float() * q["s_a"], route.float() * q["s_b"]],
                                             dim=-1), q["s_out"])
@@ -496,8 +540,12 @@ def apply_inference_int8(
                 routes.append(xq)
             elif isinstance(entry, PlanMaxPool):
                 # NHWC codes through the NCHW pool and back
-                xq = maxpool2d(xq.permute(0, 3, 1, 2), entry.kernel,
-                               entry.stride).permute(0, 2, 3, 1).contiguous()
+                if rows is None:
+                    xq = _nhwc(maxpool2d(_nchw(xq), entry.kernel, entry.stride)).contiguous()
+                else:
+                    xq, rows = relay(layout.fit, xq, rows, entry.stride)
+                    xq = _nhwc(rows.pool(_nchw(xq), entry.kernel, entry.stride)).contiguous()
+                    xq, rows = relay(layout.constrain, xq, rows)
             else:
                 raise TypeError(f"unknown plan entry {entry!r}")
     return preds

@@ -27,6 +27,7 @@ import dataclasses
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -184,6 +185,18 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
     return tuple(plan)
 
 
+def param_count(params) -> int:
+    """Elements of a module's parameters, or of the leaves of a tree of
+    arrays (a JAX-layout tree of ``fold()`` or ``trainable_to_numpy``)."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return 0 if params is None else int(np.prod(params.shape))
+
+
 def jax_layout(w: torch.Tensor, b: torch.Tensor) -> dict:
     """An OIHW conv weight and its bias as the JAX tree's {"w": HWIO, "b"}
     numpy float32 arrays."""
@@ -216,9 +229,9 @@ class TrainableResidualStage(nn.Module):
             for _ in range(entry.num_blocks)
         )
 
-    def forward(self, x, act):
+    def forward(self, x, act, rows=None):
         for blk in self.blocks:
-            y = blk["conv2"](blk["conv1"](x, act), act)
+            y = blk["conv2"](blk["conv1"](x, act, rows), act, rows)
             x = x + y if self.entry.use_residual else y
         return x
 
@@ -233,8 +246,8 @@ class TrainableHead(nn.Module):
         self.conv1 = ConvBlock(entry.in_ch, entry.mid, 3, generator=generator)
         self.conv2 = ConvBlock(entry.mid, out_ch, 1, bn=False, generator=generator)
 
-    def forward(self, x, act):
-        return self.conv2(self.conv1(x, act))
+    def forward(self, x, act, rows=None):
+        return self.conv2(self.conv1(x, act, rows), rows=rows)
 
 
 class YOLOv3(nn.Module):
@@ -276,28 +289,18 @@ class YOLOv3(nn.Module):
     def strides(self) -> Tuple[int, ...]:
         return self.cfg.strides
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, layout=None) -> List[torch.Tensor]:
+        """``layout`` (``parallel/spatial.py::Layout``) runs the forward on a
+        mesh: x is then this rank's shard, train-mode BN takes the mesh's
+        batch moments, and under SP the rows shard by its policy, the heads
+        gathered."""
         act = get_activation(self.cfg.activation)
-        x = x.to(next(self.parameters()).dtype).permute(0, 3, 1, 2)
-        preds: List[torch.Tensor] = []
-        routes: List[torch.Tensor] = []
-        for entry, layer in zip(self.plan, self.layers):
-            if isinstance(entry, PlanConv):
-                x = layer(x, act)
-            elif isinstance(entry, (PlanResidual, PlanCSP)):
-                x = layer(x, act)
-                if entry.save_route:
-                    routes.append(x)
-            elif isinstance(entry, PlanHead):
-                y = layer(x, act).permute(0, 2, 3, 1)
-                preds.append(_head_reshape(y, entry.num_classes, entry.anchors_per_scale))
-            elif isinstance(entry, PlanMaxPool):
-                x = maxpool2d(x, entry.kernel, entry.stride)
-            elif isinstance(entry, PlanRoute):
-                routes.append(x)
-            elif isinstance(entry, PlanUpsample):
-                x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
-        return preds
+
+        def head(entry, y):
+            return _head_reshape(y.permute(0, 2, 3, 1), entry.num_classes,
+                                 entry.anchors_per_scale)
+
+        return _walk(self, x, layout, act, lambda layer, x, rows: layer(x, act, rows), head)
 
     @torch.no_grad()
     def fold(self) -> list:
@@ -401,24 +404,44 @@ class ResidualStage(nn.Module):
         )
         self._stacked = None
         self._kmajor = None
+        self._weights_key = None
 
-    def _drop_kernel_copies(self):
+    def drop_kernel_copies(self):
+        """Forget the stacked and K-major copies: the next routed call
+        makes them again from the blocks' weights."""
         self._stacked = None
         self._kmajor = None
+        self._weights_key = None
 
     def _apply(self, fn, *args, **kwargs):
-        # .to() / .cuda() / .half() replace the weights
-        self._drop_kernel_copies()
+        # .to() / .cuda() / .half() replace the weights (and may free
+        # storage that a new tensor then reuses at the same address)
+        self.drop_kernel_copies()
         return super()._apply(fn, *args, **kwargs)
 
     def _load_from_state_dict(self, *args, **kwargs):
-        # load_state_dict() overwrites the weights in place (an in-place
-        # write to a block's weight by other means is not seen)
-        self._drop_kernel_copies()
+        # load_state_dict() overwrites the weights in place
+        self.drop_kernel_copies()
         return super()._load_from_state_dict(*args, **kwargs)
 
+    def _current_copies(self):
+        """Drop the copies when a weight moved or was written in place since
+        they were made: each weight's (data_ptr, _version) is their key. A
+        collective that writes a weight's storage directly (a broadcast)
+        leaves ``_version`` as it was, so its caller drops the copies
+        itself (``FoldedYOLOv3.drop_kernel_copies``); so does one that
+        writes a weight made under ``torch.inference_mode``, which has no
+        version counter."""
+        key = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                    for p in self.parameters())
+        if key != self._weights_key:
+            self.drop_kernel_copies()
+            self._weights_key = key
+
     def stacked(self):
-        """The blocks' weights in the fused kernel's layout (cached)."""
+        """The blocks' weights in the fused kernel's layout (cached while
+        the weights stay as they are)."""
+        self._current_copies()
         if self._stacked is None:
             self._stacked = stack_block_params([
                 {k: {"w": blk[k].weight, "b": blk[k].bias} for k in ("conv1", "conv2")}
@@ -428,19 +451,20 @@ class ResidualStage(nn.Module):
 
     def kmajor(self):
         """The K-major copies of the stacked weights that the CUDA kernel
-        reads (``kmajor_weights``, cached), for a stage whose channel count
-        and dtype the kernel takes (C = 512, bf16); None otherwise.
-        ``forward`` asks for them only when a call on CUDA is routed to the
-        kernel."""
+        reads (``kmajor_weights``, cached with ``stacked``), for a stage
+        whose channel count and dtype the kernel takes (C = 512, bf16);
+        None otherwise. ``forward`` asks for them only when a call on CUDA
+        is routed to the kernel."""
+        w1s, _, w2s, _ = self.stacked()
         if self._kmajor is None and self.entry.channels == KERNEL_C:
-            w1s, _, w2s, _ = self.stacked()
             if w1s.dtype == torch.bfloat16:
                 self._kmajor = kmajor_weights(w1s, w2s)
         return self._kmajor
 
-    def forward(self, x, act, activation: str, fuse: bool):
+    def forward(self, x, act, activation: str, fuse: bool, rows=None):
         _, c, h, w = x.shape
-        if fuse and self.entry.use_residual and stage_wins(h, w, c, x.dtype, x.device.type):
+        if (fuse and rows is None and self.entry.use_residual
+                and stage_wins(h, w, c, x.dtype, x.device.type)):
             # NCHW channels_last storage is NHWC: permute + contiguous is free
             fused = fused_residual_stage(
                 x.permute(0, 2, 3, 1).contiguous(), *self.stacked(), activation=activation,
@@ -448,8 +472,8 @@ class ResidualStage(nn.Module):
             )
             return fused.permute(0, 3, 1, 2)
         for blk in self.blocks:
-            y = blk["conv1"](x, act)
-            y = blk["conv2"](y, act)
+            y = blk["conv1"](x, act, rows)
+            y = blk["conv2"](y, act, rows)
             x = x + y if self.entry.use_residual else y
         return x
 
@@ -461,8 +485,8 @@ class Head(nn.Module):
         self.conv1 = FoldedConv(entry.in_ch, entry.mid, 3)
         self.conv2 = FoldedConv(entry.mid, out_ch, 1)
 
-    def forward(self, x, act):
-        return self.conv2(self.conv1(x, act))
+    def forward(self, x, act, rows=None):
+        return self.conv2(self.conv1(x, act, rows), rows=rows)
 
 
 class FoldedYOLOv3(nn.Module):
@@ -502,28 +526,71 @@ class FoldedYOLOv3(nn.Module):
     def strides(self) -> Tuple[int, ...]:
         return self.cfg.strides
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def drop_kernel_copies(self) -> None:
+        """Forget every stage's stacked and K-major weight copies (K2's
+        operands). A stage notices a weight written in place by torch (its
+        ``_version``); a collective that writes the storage directly (a
+        broadcast) does not bump it, so the caller drops the copies."""
+        for m in self.modules():
+            if isinstance(m, ResidualStage):
+                m.drop_kernel_copies()
+
+    def forward(self, x: torch.Tensor, layout=None) -> List[torch.Tensor]:
+        """``layout`` (``parallel/spatial.py::Layout``): the rank's row shard
+        under SP, the heads gathered; the fused stage is not routed."""
         act = get_activation(self.cfg.activation)
-        x = x.to(next(self.parameters()).dtype).permute(0, 3, 1, 2)
-        preds: List[torch.Tensor] = []
-        routes: List[torch.Tensor] = []
-        for entry, layer in zip(self.plan, self.layers):
+        name = self.cfg.activation
+
+        def residual(layer, x, rows):
+            if isinstance(layer, ResidualStage):
+                return layer(x, act, name, self.fuse_resblocks, rows)
+            return layer(x, act, rows)
+
+        return _walk(self, x, layout, act, residual,
+                     lambda entry, y: y.permute(0, 2, 3, 1))
+
+
+def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
+    """The plan's walk, shared by both modules: NHWC ``x`` in, one head per
+    scale out (``head(entry, NCHW y)``); ``stage(layer, x, rows)`` runs a
+    residual or CSP stage. Routes are saved at the 8-block stages and at a
+    ``PlanRoute`` and popped LIFO after each upsample; a concat is
+    ``[upsampled, route]``; a head is a branch.
+
+    With a ``layout``, ``rows`` says how each activation lies on the mesh;
+    ``layout.constrain`` re-lays it where the height changes (the JAX
+    ``constrain`` points) and the heads are gathered."""
+    x = x.to(next(model.parameters()).dtype).permute(0, 3, 1, 2)
+    rows = None
+    if layout is not None:
+        x, rows = layout.enter(x)
+    preds: List[torch.Tensor] = []
+    routes: List[torch.Tensor] = []
+    for entry, layer in zip(model.plan, model.layers):
+        if isinstance(entry, (PlanConv, PlanMaxPool)):
+            if rows is not None:
+                x, rows = layout.fit(x, rows, entry.stride)
             if isinstance(entry, PlanConv):
-                x = layer(x, act)
-            elif isinstance(entry, PlanResidual):
-                x = layer(x, act, self.cfg.activation, self.fuse_resblocks)
-                if entry.save_route:
-                    routes.append(x)
-            elif isinstance(entry, PlanCSP):
-                x = layer(x, act)
-                if entry.save_route:
-                    routes.append(x)
-            elif isinstance(entry, PlanHead):
-                preds.append(layer(x, act).permute(0, 2, 3, 1))
-            elif isinstance(entry, PlanMaxPool):
+                x = layer(x, act, rows)
+            elif rows is None:
                 x = maxpool2d(x, entry.kernel, entry.stride)
-            elif isinstance(entry, PlanRoute):
+            else:
+                x = rows.pool(x, entry.kernel, entry.stride)
+            if rows is not None:
+                x, rows = layout.constrain(x, rows)
+        elif isinstance(entry, (PlanResidual, PlanCSP)):
+            x = stage(layer, x, rows)
+            if entry.save_route:
                 routes.append(x)
-            elif isinstance(entry, PlanUpsample):
-                x = torch.cat([upsample2x(x), routes.pop().to(x.dtype)], dim=1)
-        return preds
+        elif isinstance(entry, PlanHead):
+            y = layer(x, act, rows)
+            preds.append(head(entry, y if rows is None else layout.gather(y, rows)))
+        elif isinstance(entry, PlanRoute):
+            routes.append(x)
+        elif isinstance(entry, PlanUpsample):
+            x = upsample2x(x)
+            if rows is not None:
+                # the route was laid out at this height by the same rule
+                x, rows = layout.constrain(x, rows)
+            x = torch.cat([x, routes.pop().to(x.dtype)], dim=1)
+    return preds

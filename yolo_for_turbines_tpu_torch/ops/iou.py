@@ -1,4 +1,5 @@
-"""Broadcast IoU on torch tensors (counterpart of ``ops/iou.py::calc_iou``).
+"""Broadcast IoU on torch tensors (counterpart of ``ops/iou.py``:
+``calc_iou`` and ``iou_aligned``).
 
 ``box_format="center"`` takes cxcywh; any other value takes top-left xywh
 (the reference's "corners" branch treats boxes as (x_tl, y_tl, w, h)). The
@@ -8,6 +9,14 @@ denominator has +1e-6. Operation order follows the JAX function.
 from __future__ import annotations
 
 import torch
+
+
+def iou_aligned(box1, box2) -> torch.Tensor:
+    """IoU of (..., 2) [w, h] boxes aligned at their centres, broadcast."""
+    box1, box2 = torch.as_tensor(box1), torch.as_tensor(box2)
+    inter = torch.minimum(box1[..., 0], box2[..., 0]) * torch.minimum(box1[..., 1], box2[..., 1])
+    union = box1[..., 0] * box1[..., 1] + box2[..., 0] * box2[..., 1] - inter
+    return inter / union
 
 
 def calc_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, box_format: str = "center"):

@@ -56,6 +56,21 @@ def nms_single(boxes: torch.Tensor, iou_threshold: float, obj_threshold: float,
     return kept[0], keep[0]
 
 
+def non_max_suppression(boxes, iou_threshold: float, obj_threshold: float,
+                        box_format: str = "corners") -> List[List[float]]:
+    """The reference's list API (reference: code/utils.py:150-191): a list
+    of [x, y, w, h, score, class] rows in, the surviving rows out, sorted by
+    descending score. Runs ``nms_single`` over every row on the CPU (K = the
+    row count); for host-side use, not for serving."""
+    arr = np.asarray(boxes, dtype=np.float32)
+    if arr.size == 0:
+        return []
+    kept, mask = nms_single(torch.from_numpy(arr.reshape(-1, 6)), iou_threshold=iou_threshold,
+                            obj_threshold=obj_threshold, max_boxes=arr.shape[0],
+                            box_format=box_format)
+    return nms_to_list(kept, mask)
+
+
 def nms_to_list(kept_boxes, keep_mask) -> List[List[float]]:
     """(K, 6) + (K,) -> reference-style list of [x, y, w, h, score, class]."""
     if isinstance(kept_boxes, torch.Tensor):

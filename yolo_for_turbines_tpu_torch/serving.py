@@ -193,14 +193,16 @@ def _read_manifest(path: Path) -> dict:
     return manifest
 
 
-def load_predictor_bundle(path, device="cuda", compute_dtype=None) -> Predictor:
+def load_predictor_bundle(path, device="cuda", compute_dtype=None, mesh=None) -> Predictor:
     """Rebuild a Predictor on ``device`` (``"cuda"`` unless the caller asks
     for the CPU; it raises without a card) from a bundle directory of
     either package.
 
     ``compute_dtype`` defaults to the one the bundle was saved with. A
-    bundle with a quantized tree gives a predictor that serves int8."""
-    device = resolve_device(device, "load_predictor_bundle")
+    bundle with a quantized tree gives a predictor that serves int8.
+    ``mesh`` serves on a mesh of ranks (``Predictor``; the device is the
+    mesh's), every rank loading the bundle."""
+    device = resolve_device(device if mesh is None else mesh.device, "load_predictor_bundle")
     path = Path(path)
     manifest = _read_manifest(path)
     m = dict(manifest["model"])
@@ -225,6 +227,7 @@ def load_predictor_bundle(path, device="cuda", compute_dtype=None) -> Predictor:
         nms_iou_threshold=p["nms_iou_threshold"],
         max_boxes=p["max_boxes"],
         compute_dtype=compute_dtype,
+        mesh=mesh,
     )
     if "quantized_spec" in manifest:
         with np.load(path / "quantized.npz") as z:

@@ -125,6 +125,9 @@ def main(argv=None) -> int:
                       help="profile the fused eval step of the trainable module instead")
     mode.add_argument("--train", action="store_true",
                       help="profile one bf16 train step of the 2-class mish model instead")
+    ap.add_argument("--mesh", action="store_true",
+                    help="with --train: the data-parallel step at world size 1 over NCCL "
+                         "(synced BN, global loss counts, gradient all-reduce)")
     ap.add_argument("--out", default=None, help="also write the profiler tables here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -142,11 +145,31 @@ def main(argv=None) -> int:
 
         trainer = Trainer(TrainConfig(batch_size=batch, warmup_enabled=False), device=dev)
         x, targets = train_batch(batch, 416, dev)
-        summary, table = profile_train_step(trainer, x, targets)
-        print(json.dumps({"path": "train_bf16", "batch": batch, **summary}), flush=True)
+        path = "train_bf16"
+        if args.mesh:
+            import socket
+
+            import torch.distributed as dist
+
+            from ..parallel.mesh import create_mesh
+            from ..train.steps import make_train_step
+
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                                    world_size=1)
+            trainer.train_step = make_train_step(trainer.cfg, create_mesh(device=dev))
+            path = "train_bf16_mesh_world1"
+        try:
+            summary, table = profile_train_step(trainer, x, targets)
+        finally:
+            if args.mesh:
+                dist.destroy_process_group()
+        print(json.dumps({"path": path, "batch": batch, **summary}), flush=True)
         if args.out:
             with open(args.out, "w") as f:
-                f.write(f"== train step, bf16 autocast, B={batch}\n{table}")
+                f.write(f"== {path}, bf16 autocast, B={batch}\n{table}")
         return 0
     model_cfg = ModelConfig()  # 80 classes, Darknet-53, leaky
     if args.eval:

@@ -33,16 +33,17 @@ from ..ops.nms import batched_nms
 from .loss import total_yolo_loss
 
 
-def _forward(model, images: torch.Tensor, compute_dtype) -> List[torch.Tensor]:
-    """The eval-mode heads (B, A, S, S, 5+C) f32 in ``compute_dtype``."""
+def _forward(model, images: torch.Tensor, compute_dtype, layout=None) -> List[torch.Tensor]:
+    """The eval-mode heads (B, A, S, S, 5+C) f32 in ``compute_dtype``
+    (on a mesh with ``layout``: ``models/yolov3.py::YOLOv3.forward``)."""
     was_training = model.training
     model.eval()
     try:
         if compute_dtype == torch.float32:
             with full_f32():
-                return model(images)
+                return model(images, layout=layout)
         with torch.autocast(images.device.type, dtype=compute_dtype):
-            return model(images)
+            return model(images, layout=layout)
     finally:
         model.train(was_training)
 

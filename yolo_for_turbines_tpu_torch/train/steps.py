@@ -21,8 +21,19 @@
   exponent range); float32 runs forward and backward with TF32 off
   (``models/blocks.py::full_f32``).
 
-Data parallelism (the JAX step's ``mesh`` argument) waits for the port's
-parallel slice; these steps run on the device of the module.
+- Mesh: with ``mesh=`` (``parallel/``) each rank runs the step on its
+  shard of the global batch (``shard_batch``, or ``shard_spatial_batch`` on
+  a ``("data", "space")`` mesh) and the update is the single-process
+  step's on the global batch, as the JAX sharded step's is: train-mode BN
+  takes the global batch's moments (``parallel/comm.py::sync_batch_norm``),
+  the loss divides by the global batch's counts, and after ``backward`` one
+  flat all-reduce sums the gradients over the mesh. The sum is explicit
+  rather than DistributedDataParallel's: the step's other collectives (BN
+  moments, and halo rows under SP) run inside ``backward`` on the same
+  groups, and one all-reduce after it keeps a single collective order on
+  every rank; and under SP the gradient is a plain sum over data x space,
+  which DDP's mean over the world would have to undo. Every rank gets the
+  global loss terms.
 """
 
 from __future__ import annotations
@@ -130,64 +141,89 @@ def create_train_state(model: nn.Module, cfg: TrainConfig, frozen: Iterable[str]
     return TrainState(model, optimizer, 0, hyper)
 
 
+def _metrics(total, comps, layout) -> dict:
+    metrics = {k: v.detach() for k, v in comps.items()}
+    metrics["loss"] = total.detach()
+    return metrics if layout is None else layout.reduce_metrics(metrics)
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, images: torch.Tensor,
-               targets, scaled_anchors, compute_dtype: torch.dtype = torch.bfloat16):
+               targets, scaled_anchors, compute_dtype: torch.dtype = torch.bfloat16,
+               layout=None):
     """One SGD step in train mode at the lr in the optimizer's param groups.
 
     ``images`` (B, S, S, 3) and ``targets`` (3 tensors (B, A, S, S, 6),
     coarsest first) on the module's device; ``scaled_anchors`` (3, A, 2) in
     cell units. Returns the loss terms and "loss" as detached device
-    tensors (no host sync)."""
+    tensors (no host sync). With ``layout``
+    (``parallel/spatial.py::Layout``) the batch is this rank's shard and the
+    step is the global batch's (module docstring)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     f32 = compute_dtype == torch.float32
+    reduce_counts = None if layout is None else layout.reduce_counts
     with full_f32() if f32 else contextlib.nullcontext():
         with contextlib.nullcontext() if f32 else torch.autocast(images.device.type,
                                                                  dtype=compute_dtype):
-            total, comps = total_yolo_loss(model(images), targets, scaled_anchors)
-        total.backward()
+            total, comps = total_yolo_loss(model(images, layout=layout), targets,
+                                           scaled_anchors, reduce_counts)
+        if layout is None:
+            total.backward()
+        else:
+            (total * layout.loss_weight).backward()
+            layout.reduce_gradients(p for p in model.parameters() if p.requires_grad)
     optimizer.step()
-    metrics = {k: v.detach() for k, v in comps.items()}
-    metrics["loss"] = total.detach()
-    return metrics
+    return _metrics(total, comps, layout)
 
 
 @torch.no_grad()
 def eval_step(model: nn.Module, images: torch.Tensor, targets, scaled_anchors,
-              compute_dtype: torch.dtype = torch.bfloat16):
+              compute_dtype: torch.dtype = torch.bfloat16, layout=None):
     """Forward and loss in eval mode, no gradients (the module's mode is
-    restored after it): the loss terms and "loss" as device tensors."""
-    total, comps = total_yolo_loss(_forward(model, images, compute_dtype), targets,
-                                   scaled_anchors)
-    metrics = dict(comps)
-    metrics["loss"] = total
-    return metrics
+    restored after it): the loss terms and "loss" as device tensors, of the
+    global batch with ``layout``."""
+    total, comps = total_yolo_loss(_forward(model, images, compute_dtype, layout), targets,
+                                   scaled_anchors,
+                                   None if layout is None else layout.reduce_counts)
+    return _metrics(total, comps, layout)
 
 
-def make_train_step(cfg: TrainConfig):
+def _layout(mesh):
+    if mesh is None:
+        return None
+    from ..parallel.spatial import Layout
+
+    return Layout(mesh)
+
+
+def make_train_step(cfg: TrainConfig, mesh=None):
     """fn(state, images, targets, scaled_anchors) -> metrics: writes the lr
     of ``state.step`` into the param groups, takes one :func:`train_step`
-    in ``cfg.compute_dtype`` and counts it."""
+    in ``cfg.compute_dtype`` and counts it. With ``mesh`` (``parallel/``)
+    the inputs are this rank's shards and the step is the global batch's;
+    every rank of the mesh calls it."""
     dtype = compute_dtype_of(cfg.compute_dtype)
+    layout = _layout(mesh)
 
     def step(state: TrainState, images, targets, scaled_anchors):
         lr = scheduled_lr(state.step, state.hyper)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         metrics = train_step(state.model, state.optimizer, images, targets, scaled_anchors,
-                             dtype)
+                             dtype, layout)
         state.step += 1
         return metrics
 
     return step
 
 
-def make_eval_step(cfg: TrainConfig):
+def make_eval_step(cfg: TrainConfig, mesh=None):
     """fn(state, images, targets, scaled_anchors) -> metrics: :func:`eval_step`
-    in ``cfg.compute_dtype``."""
+    in ``cfg.compute_dtype``, over the mesh's global batch with ``mesh``."""
     dtype = compute_dtype_of(cfg.compute_dtype)
+    layout = _layout(mesh)
 
     def step(state: TrainState, images, targets, scaled_anchors):
-        return eval_step(state.model, images, targets, scaled_anchors, dtype)
+        return eval_step(state.model, images, targets, scaled_anchors, dtype, layout)
 
     return step

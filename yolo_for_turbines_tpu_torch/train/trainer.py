@@ -22,7 +22,32 @@ the target encoding.
 
 ``Trainer``, ``train()`` and the ASHA adapter ``HPOTrainFn`` run on
 ``device``, ``"cuda"`` unless the caller asks for the CPU; with no CUDA
-device they raise. Data parallelism waits for a later slice of the port.
+device they raise.
+
+Parallel training (``parallel/``): ``Trainer(mesh=)`` takes a mesh of
+ranks, every rank building the trainer. Rank 0's initial weights are
+broadcast; each global batch is loaded whole on every rank (the per-item
+augmentation RNG is spawned in call order, so a loader of the rank's rows
+alone would draw other augmentations) and the rank's shard of it is placed
+on its device (``shard_batch``, or ``shard_spatial_batch`` on a ``("data",
+"space")`` mesh); the train step is the global batch's
+(``train/steps.py``). A multi-scale ``change_scale()`` draws the same
+sizes on every rank (one seed, one call per ``num_batch_to_resize``
+batches); which batch a new size reaches first follows the loader's lead,
+so under DP two ranks may serve one step at two sizes, which the step's
+count-weighted BN moments and loss means take as one mixed global batch.
+Under SP the ranks of one image must agree on its size, so a spatial mesh
+refuses ``multi_scale``. Eval runs unsharded on every rank, as in the JAX
+trainer; its mAP and loss are rank 0's on every rank, so that every rank
+takes the same early-stop decisions. Only rank 0 writes logs and
+checkpoints.
+
+Under ``torchrun`` ``train()`` joins the process group and builds the mesh
+itself (``parallel/mesh.py::init_from_env``), as the JAX trainer's data
+parallelism is automatic. The JAX trainer uses the largest divisor of
+``batch_size`` that fits its devices and leaves the rest idle; a rank of a
+``torchrun`` job cannot idle through it, so when that divisor is not the
+world's size, ``train()`` raises and names it.
 """
 
 from __future__ import annotations
@@ -43,6 +68,9 @@ from ..data.loader import get_loaders, prefetch_to_device
 from ..models.darknet_weights import load_darknet_into
 from ..models.yolov3 import YOLOv3
 from ..ops.map import calc_map, calc_map_device_batched
+from ..parallel import comm
+from ..parallel.mesh import batch_sharding, create_mesh, init_from_env
+from ..parallel.spatial import is_spatial, spatial_image_sharding, spatial_target_sharding
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluate import evaluate_map, make_fused_eval_step, rows_from_eval_step
@@ -74,6 +102,48 @@ def _to_host(tots) -> dict:
     return dict(zip(keys, torch.stack([tots[k].float() for k in keys]).tolist()))
 
 
+def _check_mesh(mesh, train_cfg: TrainConfig) -> None:
+    from ..parallel.mesh import DATA_AXIS
+
+    if not mesh.active:
+        raise ValueError(f"rank {mesh.rank} is idle on this mesh of {mesh.size} ranks")
+    spatial = is_spatial(mesh)
+    ways = mesh.axis_size(DATA_AXIS) if spatial else mesh.size
+    if train_cfg.batch_size % ways:
+        raise ValueError(f"batch_size {train_cfg.batch_size} does not divide over the "
+                         f"{ways} ranks that hold its rows")
+    if spatial and train_cfg.multi_scale and mesh.size > 1:
+        raise ValueError("multi_scale under spatial partitioning: the ranks of one image "
+                         "must agree on its size, which the loader's lead does not ensure")
+
+
+def data_parallel_mesh(batch_size: int, device="cuda"):
+    """The ``("data",)`` mesh of a ``torchrun`` job for ``batch_size``: the
+    largest divisor of the batch that fits the world must be the world's
+    size, since a rank cannot sit a job out."""
+    world = torch.distributed.get_world_size()
+    n = max(d for d in range(1, world + 1) if batch_size % d == 0)
+    if n != world:
+        raise ValueError(
+            f"batch_size {batch_size} does not divide over the {world} ranks of this job; "
+            f"the largest divisor that fits is {n}: launch {n} ranks "
+            f"(torchrun --nproc_per_node={n}) or a batch size that {world} divides")
+    return create_mesh(device=device)
+
+
+class _NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, metrics) -> None:
+        pass
+
+    def log_model(self, path, name: str) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
 class Trainer:
     def __init__(
         self,
@@ -81,10 +151,21 @@ class Trainer:
         model_cfg: Optional[ModelConfig] = None,
         anchors=cfg.TURBINE_ANCHORS,
         weights_path=None,
-        device="cuda",
+        device=None,
         report_callback=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device, "training")
+        """``device`` is ``"cuda"`` when not given; with a ``mesh`` it is
+        the mesh's device (module docstring)."""
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+            _check_mesh(mesh, train_cfg)
+        self.device = resolve_device("cuda" if device is None else device, "training")
+        self.mesh = mesh
+        # rank 0 logs, checkpoints and reports
+        self.is_main = mesh is None or mesh.rank == 0
         self.cfg = train_cfg
         self.model_cfg = model_cfg or ModelConfig(
             num_classes=cfg.NUM_TURBINE_CLASSES, activation=train_cfg.activation
@@ -108,8 +189,31 @@ class Trainer:
             model = model.to(self.device)
         self.model = model
         self.state = create_train_state(model, train_cfg, frozen)
-        self.train_step = make_train_step(train_cfg)
+        step_mesh = None
+        if mesh is not None:
+            comm.broadcast_module(model, mesh.group)  # replicas start from rank 0's
+            step_mesh = mesh if mesh.size > 1 else None
+        self.train_step = make_train_step(train_cfg, step_mesh)
+        # eval runs unsharded: val batches may be ragged (no drop_last)
         self.eval_step = make_eval_step(train_cfg)
+
+    def _shard(self, batch):
+        """This rank's host shard of a global (images, targets) batch."""
+        images, targets = batch
+        if self.mesh is None:
+            return images, targets
+        if is_spatial(self.mesh):
+            img, tgt = spatial_image_sharding(self.mesh), spatial_target_sharding(self.mesh)
+        else:
+            img = tgt = batch_sharding(self.mesh)
+        return img.take(images), tuple(tgt.take(t) for t in targets)
+
+    def _from_rank0(self, value: float) -> float:
+        """``value`` as rank 0 has it, on every rank of the mesh."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        return float(comm.broadcast_(t, self.mesh.group)[0])
 
     # ------------------------------------------------------------------
 
@@ -132,11 +236,11 @@ class Trainer:
         b = self.cfg.batch_size
         a = self.model_cfg.anchors_per_scale
         for size in sizes:
-            images = torch.zeros((b, size, size, 3), device=self.device)
-            targets = tuple(
-                torch.zeros((b, a, size // s, size // s, 6), device=self.device)
-                for s in self.model.strides
-            )
+            images, targets = self._shard((
+                np.zeros((b, size, size, 3), np.float32),
+                tuple(np.zeros((b, a, size // s, size // s, 6), np.float32)
+                      for s in self.model.strides)))
+            images, targets = self._batch(images, targets)
             self.train_step(state, images, targets, self._anchors(size))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -144,7 +248,7 @@ class Trainer:
     def train_one_epoch(self, train_ds, train_loader, logger):
         # double-buffered device placement: batch N+1's host-to-device copy
         # overlaps batch N's step
-        batches = prefetch_to_device(train_loader, self.device, size=2)
+        batches = prefetch_to_device(train_loader, self.device, size=2, sharding=self._shard)
         # metrics accumulate ON THE DEVICE: a per-step float() would sync
         # host and device every step; only the epoch-end read does
         dev_tots = None
@@ -156,7 +260,8 @@ class Trainer:
                 and (batch_idx + 1) % self.cfg.num_batch_to_resize == 0
             ):
                 train_ds.change_scale()  # next batches re-bucket
-            metrics = self.train_step(self.state, x, y, self._anchors(x.shape[1]))
+            # the width: under SP this rank holds a band of the rows
+            metrics = self.train_step(self.state, x, y, self._anchors(x.shape[2]))
             dev_tots = _sum(dev_tots, metrics)
             n += 1
             if start_step + n >= self.cfg.max_num_steps:
@@ -190,7 +295,7 @@ class Trainer:
                 n += 1
             avg = {f"val_{k}": v / max(n, 1) for k, v in _to_host(dev_tots).items()}
             logger.log(avg)
-            return avg.get("val_loss", 0.0), None
+            return self._from_rank0(avg.get("val_loss", 0.0)), None
 
         # every-10th-epoch eval: ONE fused pass over the val set. The forward
         # runs once per batch and feeds the loss, the accuracy counts and
@@ -258,9 +363,10 @@ class Trainer:
                 "mAP": mAP,
             }
         )
-        if self.report_callback is not None:
+        mAP = self._from_rank0(mAP)
+        if self.report_callback is not None and self.is_main:
             self.report_callback({"mAP": mAP})
-        return avg.get("val_loss", 0.0), mAP
+        return self._from_rank0(avg.get("val_loss", 0.0)), mAP
 
 
 def _train_config(config) -> TrainConfig:
@@ -383,10 +489,35 @@ def train(
     backbone: str = "darknet53",
     num_classes: int = cfg.NUM_TURBINE_CLASSES,
     device="cuda",
+    mesh=None,
 ) -> float:
-    """Reference-parity train() entry (code/train.py:158-239). Returns best mAP."""
-    device = resolve_device(device, "training")
+    """Reference-parity train() entry (code/train.py:158-239). Returns best
+    mAP. Under ``torchrun`` it joins the process group and trains on the
+    job's ``data_parallel_mesh`` (on ``cuda:<LOCAL_RANK>``) unless ``mesh``
+    is given; the group it joined is left before it returns."""
     tc = _train_config(hyperparam_config)
+    joined = False
+    if mesh is None and not torch.distributed.is_initialized():
+        joined = init_from_env(device)
+        if joined:
+            mesh = data_parallel_mesh(tc.batch_size, device)
+    try:
+        return _train(tc, csv_folder_path, model_folder_path, identifier,
+                      early_stop, checkpoint_name, image_folder, annotation_folder, anchors,
+                      weights_path, report_callback, num_workers, backbone, num_classes,
+                      device, mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(tc, csv_folder_path, model_folder_path, identifier, early_stop,
+           checkpoint_name, image_folder, annotation_folder, anchors, weights_path,
+           report_callback, num_workers, backbone, num_classes, device, mesh) -> float:
+    if mesh is not None:
+        device = mesh.device
+    device = resolve_device(device, "training")
+    main = mesh is None or mesh.rank == 0
     # the anchors belong in the run config (the reference logs its whole
     # hyperparam dict, code/train.py:164): a custom-anchor run must be
     # auditable from the metrics file alone
@@ -397,7 +528,7 @@ def train(
         f"YOLOv3_Turbine_Detection_{identifier}",
         config=run_config,
         out_dir=model_folder_path,
-    )
+    ) if main else _NullLogger()
     trainer = Trainer(
         tc,
         model_cfg=ModelConfig(
@@ -408,8 +539,9 @@ def train(
         ),
         anchors=anchors,
         weights_path=weights_path,
-        device=device,
+        device=None if mesh is not None else device,
         report_callback=report_callback,
+        mesh=mesh,
     )
     if tc.load_checkpoint and checkpoint_name:
         load_checkpoint(trainer.state, Path(model_folder_path) / checkpoint_name, tc.lr)
@@ -453,12 +585,13 @@ def train(
             elif mAP < best_map:
                 early_stop -= 1
         epoch += 1
-        if num_epochs >= 4 and (epoch + 1) % max(1, int(0.25 * num_epochs)) == 0:
+        if main and num_epochs >= 4 and (epoch + 1) % max(1, int(0.25 * num_epochs)) == 0:
             save_checkpoint(best_state, ckpt_path)
             logger.log_model(ckpt_path, f"best_model_{identifier}")
         logger.log({"time_elapsed_in_hours": (time.time() - start) / 3600})
 
-    save_checkpoint(best_state, ckpt_path)
-    logger.log_model(ckpt_path, f"best_model_{identifier}")
+    if main:
+        save_checkpoint(best_state, ckpt_path)
+        logger.log_model(ckpt_path, f"best_model_{identifier}")
     logger.finish()
     return best_map
