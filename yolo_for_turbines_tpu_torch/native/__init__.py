@@ -85,6 +85,11 @@ def load_library() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the packers built and loaded (else the numpy + PIL paths run)."""
+    return load_library() is not None
+
+
 def _sources(images: Sequence[np.ndarray]):
     """Contiguous uint8 copies (kept alive by the caller) and their pointer,
     height and width arrays."""

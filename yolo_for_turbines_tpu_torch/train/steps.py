@@ -41,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import numpy as np
 import torch
@@ -89,6 +89,32 @@ def scheduled_lr(step: int, hyper: Dict[str, float]) -> float:
     return float(lr_warm if stepf < ws else lr_after)
 
 
+def warmup_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """step -> lr of ``cfg``: the JAX package's optax schedule (linear
+    warmup from 1e-6 * lr, then constant or cosine decay; constant with
+    warmup off), as :func:`scheduled_lr` computes it."""
+    hyper = hyper_from_config(cfg)
+    return lambda step: scheduled_lr(step, hyper)
+
+
+def make_optimizer(cfg: TrainConfig, frozen: Iterable[str] = ()):
+    """``(build, schedule)``: ``build(model)`` freezes the named parameters
+    (``model.named_parameters()`` names) and returns the SGD over the rest
+    (momentum, weight decay before it) at the schedule's lr of step 0;
+    ``schedule`` is :func:`warmup_schedule`. The JAX ``make_optimizer``'s
+    pair of a masked optax transformation and its schedule."""
+    frozen = tuple(frozen)
+    schedule = warmup_schedule(cfg)
+
+    def build(model: nn.Module) -> torch.optim.Optimizer:
+        freeze_parameters(model, frozen)
+        return torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
+                               lr=schedule(0), momentum=cfg.momentum,
+                               weight_decay=cfg.weight_decay)
+
+    return build, schedule
+
+
 @dataclasses.dataclass
 class TrainState:
     """The module, its SGD optimizer, the count of steps taken and the
@@ -132,13 +158,10 @@ def freeze_parameters(model: nn.Module, names: Iterable[str]) -> None:
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig, frozen: Iterable[str] = ()) -> TrainState:
-    """Freeze ``frozen``, then SGD over every parameter left trainable."""
-    freeze_parameters(model, frozen)
-    hyper = hyper_from_config(cfg)
-    optimizer = torch.optim.SGD(
-        [p for p in model.parameters() if p.requires_grad], lr=scheduled_lr(0, hyper),
-        momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-    return TrainState(model, optimizer, 0, hyper)
+    """Freeze ``frozen``, then SGD over every parameter left trainable
+    (:func:`make_optimizer`)."""
+    build, _ = make_optimizer(cfg, frozen)
+    return TrainState(model, build(model), 0, hyper_from_config(cfg))
 
 
 def _metrics(total, comps, layout) -> dict:
@@ -215,6 +238,19 @@ def make_train_step(cfg: TrainConfig, mesh=None):
         return metrics
 
     return step
+
+
+def make_forward_eval(cfg: TrainConfig):
+    """fn(state, images) -> the eval-mode raw heads (B, A, S, S, 5+C), f32,
+    in ``cfg.compute_dtype`` (running statistics; the module's mode is
+    restored after it), without gradients."""
+    dtype = compute_dtype_of(cfg.compute_dtype)
+
+    @torch.no_grad()
+    def fwd(state: TrainState, images):
+        return _forward(state.model, images, dtype)
+
+    return fwd
 
 
 def make_eval_step(cfg: TrainConfig, mesh=None):
