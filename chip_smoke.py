@@ -163,6 +163,26 @@ Phases, one JSON line each:
           K1 once and K2 (bf16) or K4 (int8) 8 times per call, survivors
           per image; the mAP trajectory, losses by epoch, train()'s wall
           seconds and the loader's host seconds per batch.
+  finetune  the fine-tune and high-resolution path of tools/convergence.py
+          (R3F's frozen import on R4's set), the 2-class mish Darknet-53 at
+          full width: 96 seeded 1280x960 small-defect JPEGs, k-means anchors
+          checked to reach target assignment, a seeded backbone.conv.74
+          written through the darknet format; two epochs of a Trainer with
+          it imported frozen (frozen parameters out of SGD and bit for bit,
+          every other one moved); train() with it frozen, multi-scale
+          buckets, B = 32, 20 steps at TRAIN_LR (the frozen count that of
+          JAX's mask, FROZEN_CONV74; the checkpoint's frozen parameters
+          equal to the file's; losses finite; K1 at epoch 9's fused eval);
+          the checkpoint resumed by train(load_checkpoint=True) at 832px,
+          B = 8, for 10 steps (step and schedule restored, the lr of every
+          resumed step the restored schedule's, printed); the checkpoint
+          evaluated at 416, 608 and 832 (evaluate_map_device equal to host
+          calc_map, K1 once per eval step); served by
+          load_predictor_from_checkpoint at 416 in bf16 (K1 1, K2 8 per
+          call) and int8 (K1 1, K4 8) and at 608 in bf16 (K1 1, K2 0): the
+          served bf16 mAP within SERVED_MAP_TOL of the trainer's at the same
+          size, the bf16 heads within HEAD_RTOL of a float32 predictor's
+          (the serving gate, which R1's trained weights meet at 0.0135).
 The main phases also count K3's launches (no serving path calls it).
 Then the kernel table as one JSON line (each kernel's time beside its
 bound from this run's inputs: bytes over 3.35 TB/s or operations over the
@@ -2620,6 +2640,177 @@ def phase_converge(dev):
     return launches
 
 
+
+# finetune phase: tools/convergence.py's fine-tune and high-resolution path
+# at full width (the 2-class mish Darknet-53 train() builds), cut in depth:
+# 96 images of R4's 1280x960 small-defect set, k-means anchors, a seeded
+# backbone.conv.74 imported frozen, FINETUNE_STEPS steps of train() at
+# B = 32 with multi-scale buckets (one new bucket per batch: 2 batches an
+# epoch never reach the default's 10), at TRAIN_LR with half of them warmup
+# as in phase train; the checkpoint resumed at 832px, B = 8, for
+# FINETUNE_RESUME_STEPS steps (one epoch), evaluated at 416, 608 and 832
+# and served at 416 (bf16 and int8) and 608 (bf16)
+FINETUNE_DIR = TRAIN_DIR / "finetune"
+FINETUNE_IMAGES = 96
+FINETUNE_STEPS = 20
+FINETUNE_RESUME_STEPS = 10
+FINETUNE_SEED = 0
+
+
+def frozen_step_check(dev, recipe, tc, root, anchors, weights_path) -> dict:
+    """Two epochs (4 steps: the first at 1e-6 of the lr moves nothing) of a
+    Trainer built as train() builds it, with the file imported frozen: on
+    the live module every frozen parameter keeps the file's value bit for
+    bit and every other one moves."""
+    from yolo_for_turbines_tpu_torch.data.loader import get_loaders
+    from yolo_for_turbines_tpu_torch.models.darknet_weights import load_darknet_into
+    from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3
+    from yolo_for_turbines_tpu_torch.tools import convergence as conv
+    from yolo_for_turbines_tpu_torch.train.trainer import Trainer
+
+    model_cfg = recipe.model_config()
+    start = YOLOv3(model_cfg, generator=torch.Generator().manual_seed(tc.seed))
+    frozen, _ = load_darknet_into(str(weights_path), start, freeze=True)
+    trainer = Trainer(tc, model_cfg, anchors=anchors, weights_path=weights_path, device=dev)
+    train_loader, _, train_ds = get_loaders(
+        root, batch_size=tc.batch_size, anchors=anchors, num_workers=conv.NUM_WORKERS,
+        mosaic=tc.mosaic, cache_images=tc.cache_images, image_size=tc.image_size,
+        **conv.folders(root))
+
+    class Rows:
+        def log(self, d):
+            pass
+
+    for _ in range(2):
+        trainer.train_one_epoch(train_ds, train_loader, Rows())
+    live = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+    before = dict(start.named_parameters())
+    frozen_set = set(frozen)
+    return {"frozen_count": len(frozen), "parameters": len(live), "steps": trainer.state.step,
+            "optimizer_params": sum(len(g["params"])
+                                    for g in trainer.state.optimizer.param_groups),
+            "frozen_changed": [n for n in frozen if not torch.equal(live[n], before[n])],
+            "unfrozen_unmoved": [n for n in live
+                                 if n not in frozen_set and torch.equal(live[n], before[n])],
+            "frozen_requiring_grad": [n for n, p in trainer.model.named_parameters()
+                                      if n in frozen_set and p.requires_grad]}
+
+
+def phase_finetune(dev):
+    """The fine-tune and high-resolution path of tools/convergence.py on the
+    card (module docstring)."""
+    import shutil
+
+    from yolo_for_turbines_tpu_torch.tools import convergence as conv
+
+    recipe = dataclasses.replace(conv.R3F, name="finetune", num_images=FINETUNE_IMAGES,
+                                 hires=True, eval_sizes=conv.R4.eval_sizes,
+                                 finetune=conv.R4.finetune)
+    overrides = dict(lr=TRAIN_LR, max_num_steps=FINETUNE_STEPS, warmup=0.5,
+                     num_batch_to_resize=1)
+    out = {"phase": "finetune", "recipe": recipe.name, "seed": FINETUNE_SEED,
+           "overrides": overrides, "served_map_tol": SERVED_MAP_TOL,
+           "head_rtol": HEAD_RTOL}
+    shutil.rmtree(FINETUNE_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    ok = {}
+    try:
+        t0 = time.perf_counter()
+        root = conv.make_set(FINETUNE_DIR / "data", recipe.num_images, hires=True)
+        out["synthetic_set_s"] = time.perf_counter() - t0
+        anchors, out["anchors"] = conv.run_anchors(recipe, root)
+        weights_path = conv.write_backbone(root / conv.BACKBONE_FILE, recipe.model_config())
+        tc = recipe.train_config(seed=FINETUNE_SEED, **overrides)
+        out["live"] = live = frozen_step_check(dev, recipe, tc, root, anchors, weights_path)
+        torch.cuda.empty_cache()
+
+        maps = []
+        models = FINETUNE_DIR / "models"
+        zero_counts()
+        run = conv.run_recipe(recipe, FINETUNE_SEED, root, models, dev,
+                              report_callback=maps.append, anchors=anchors, **overrides)
+        torch.cuda.synchronize()
+        train_launches = kernel_counts()
+        ckpt = Path(run["checkpoint"])
+        # resumed at 832, B = 8, frozen as the base was
+        zero_counts()
+        ft = conv.run_finetune(recipe, FINETUNE_SEED, root, models, ckpt,
+                               run["checkpoint_step"], FINETUNE_RESUME_STEPS, dev, anchors,
+                               weights_path=weights_path, load_weights=True,
+                               freeze_backbone=True)
+        torch.cuda.synchronize()
+        ft_launches = kernel_counts()
+        torch.cuda.empty_cache()
+        zero_counts()
+        by_size = conv.map_by_size(ckpt, root, recipe, anchors, dev, recipe.eval_sizes)
+        eval_launches = kernel_counts()
+        zero_counts()
+        serve416 = conv.serve_checkpoint(ckpt, root, recipe, dev, anchors=anchors,
+                                         image_size=416, **overrides)
+        serve608 = conv.serve_checkpoint(ckpt, root, recipe, dev, anchors=anchors,
+                                         image_size=608, int8=False, **overrides)
+        serve_launches = kernel_counts()
+    finally:
+        shutil.rmtree(FINETUNE_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out.update(run=run, finetune=ft, map_by_size=by_size, serve_416=serve416,
+               serve_608=serve608, train_launches=train_launches, ft_launches=ft_launches,
+               eval_launches=eval_launches, serve_launches=serve_launches)
+    out["first_resumed_lr"] = ft["first_resumed_lr"]
+    frozen = run.get("frozen", {})
+    ok["anchors_reach_assignment"] = (
+        out["anchors"].get("anchor_assignment_diverges_from_default") is True
+        and out["anchors"].get("anchor_assignment_spot_checks") == conv.ANCHOR_CHECK_FILES)
+    ok["frozen_count_is_jax_mask"] = (live["frozen_count"] == frozen.get("frozen_count")
+                                      == conv.FROZEN_CONV74)
+    ok["frozen_out_of_sgd"] = (live["optimizer_params"]
+                               == live["parameters"] - conv.FROZEN_CONV74
+                               and not live["frozen_requiring_grad"])
+    ok["live_frozen_bitwise_unfrozen_moved"] = (live["steps"] > 0
+                                                and not live["frozen_changed"]
+                                                and not live["unfrozen_unmoved"])
+    ok["checkpoint_frozen_bitwise"] = frozen.get("frozen_bitwise_unchanged") is True
+    ok["losses_finite"] = (not run["nan_stop"] and run["steps"] == FINETUNE_STEPS
+                           and all(isinstance(v, float) and np.isfinite(v)
+                                   for v in run["train_loss_by_epoch"]))
+    ok["k1_at_the_fused_eval"] = (len(maps) == 1 and train_launches["greedy_nms"] >= 1
+                                  and train_launches["fused_residual_stage"] == 0
+                                  and train_launches["fused_residual_stage_int8"] == 0)
+    ok["resumed_step_and_hyper"] = (
+        ft["restored_step"] == run["checkpoint_step"]
+        and ft["steps"] == FINETUNE_RESUME_STEPS
+        and ft["lr_by_step_is_restored_schedule"] is True
+        and ft.get("saved_hyper_is_restored") is True
+        and not ft["nan_stop"])
+    ok["device_map_equals_host_by_size"] = all(
+        abs(v["device_map"] - v["host_map"]) <= EVAL_MAP_TOL for v in by_size.values())
+    ok["k1_once_per_eval_step"] = (
+        all(v["k1_launches"] == 2 * v["val_batches"] for v in by_size.values())
+        and eval_launches["fused_residual_stage"] == eval_launches["fused_residual_stage_int8"]
+        == 0)
+    bf16, int8, bf16_608 = (serve416["served_bf16"], serve416["served_int8"],
+                            serve608["served_bf16"])
+    ok["served_launches"] = (
+        bf16["launches_per_call"] == {"greedy_nms": 1, "fused_residual_stage": 8,
+                                      "fused_residual_stage_int8": 0}
+        and int8["launches_per_call"] == {"greedy_nms": 1, "fused_residual_stage": 0,
+                                          "fused_residual_stage_int8": 8}
+        and bf16_608["launches_per_call"] == {"greedy_nms": 1, "fused_residual_stage": 0,
+                                              "fused_residual_stage_int8": 0})
+    ok["served_bf16_near_trainer"] = all(
+        abs(s["served_bf16"]["map"] - s["trainer_map_device"]) <= SERVED_MAP_TOL
+        and abs(s["trainer_map_device"] - s["trainer_map_host"]) <= EVAL_MAP_TOL
+        for s in (serve416, serve608))
+    ok["bf16_heads_near_f32"] = all(s["heads_vs_f32"] <= HEAD_RTOL
+                                    for s in (serve416, serve608))
+    ok["int8_map_finite"] = bool(np.isfinite(int8["map"]))
+    out["ok"] = ok
+    emit(out)
+    require(all(ok.values()), f"finetune phase failed: {ok}")
+    return {k: train_launches[k] + ft_launches[k] + eval_launches[k] + serve_launches[k]
+            for k in train_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2654,20 +2845,23 @@ def main() -> int:
     families.update(phase_hpo(dev))
     par = phase_parallel(dev)
     launches_conv = phase_converge(dev)
+    launches_ft = phase_finetune(dev)
     nms_by_path = {"main": launches["greedy_nms"], "main_f32": launches_f32["greedy_nms"],
                    "main_int8": launches_int8["greedy_nms"], "eval": launches_eval["greedy_nms"],
                    "eval_fold": launches_fold["greedy_nms"], "train": launches_train["greedy_nms"],
                    **{k: v["greedy_nms"] for k, v in families.items()},
                    **{k: v["greedy_nms"] for k, v in deploy.items()},
                    **{k: v["greedy_nms"] for k, v in par.items()},
-                   "converge": launches_conv["greedy_nms"]}
+                   "converge": launches_conv["greedy_nms"],
+                   "finetune": launches_ft["greedy_nms"]}
     iou_by_path = {"main": iou_main, "main_f32": launches_f32["pairwise_iou"],
                    "main_int8": iou_int8, "eval": launches_eval["pairwise_iou"],
                    "train": launches_train["pairwise_iou"],
                    **{k: v["pairwise_iou"] for k, v in families.items()},
                    **{k: v["pairwise_iou"] for k, v in deploy.items()},
                    **{k: v["pairwise_iou"] for k, v in par.items()},
-                   "converge": launches_conv["pairwise_iou"]}
+                   "converge": launches_conv["pairwise_iou"],
+                   "finetune": launches_ft["pairwise_iou"]}
 
     emit({"kernels": [
         {"name": "greedy_nms", "route": "cuda",
@@ -2688,7 +2882,8 @@ def main() -> int:
                               "demo": deploy["demo"]["fused_residual_stage"],
                               "deploy_export": deploy["deploy_export"]["fused_residual_stage"],
                               **{k: v["fused_residual_stage"] for k, v in par.items()},
-                              "converge": launches_conv["fused_residual_stage"]},
+                              "converge": launches_conv["fused_residual_stage"],
+                              "finetune": launches_ft["fused_residual_stage"]},
          **k2},
         # no serving path calls K3, in the port as in the JAX package
         {"name": "pairwise_iou", "route": "cuda",
@@ -2706,7 +2901,8 @@ def main() -> int:
                               "deploy_export":
                                   deploy["deploy_export"]["fused_residual_stage_int8"],
                               **{k: v["fused_residual_stage_int8"] for k, v in par.items()},
-                              "converge": launches_conv["fused_residual_stage_int8"]},
+                              "converge": launches_conv["fused_residual_stage_int8"],
+                              "finetune": launches_ft["fused_residual_stage_int8"]},
          **k4},
     ]})
     print(gpu, flush=True)
