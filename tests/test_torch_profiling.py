@@ -34,6 +34,9 @@ def test_profile_predict_batch_on_cpu(int8):
     assert summary["wall_ms"] > 0
     assert summary["device_busy_ms"] == 0 and summary["idle_share"] == 1.0
     assert summary["top"] == []
+    assert sorted(summary["host_ms"]) == ["predict_batch", "predict_batch.forward",
+                                          "predict_batch.input", "predict_batch.postprocess"]
+    assert all(v > 0 for v in summary["host_ms"].values())
     assert "Self CPU" in table
 
 
@@ -44,6 +47,7 @@ def test_profile_eval_step_on_cpu():
     targets = [torch.zeros(2, cfg.anchors_per_scale, s, s, 6) for s in (2, 4, 8)]
     summary, table = profile_serving.profile_eval_step(model, x, targets, iters=1, warmup=1)
     assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0
+    assert summary["host_ms"] == {}  # the eval step opens no span
     assert "Self CPU" in table
 
 
@@ -60,6 +64,8 @@ def test_profile_train_step_on_cpu():
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     summary, table = profile_serving.profile_train_step(trainer, x, targets, iters=1, warmup=1)
     assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0
+    assert sorted(summary["host_ms"]) == ["train_step", "train_step.backward",
+                                          "train_step.forward", "train_step.optimizer"]
     assert "Self CPU" in table
     # the profiled steps ran on a copy of the state
     assert trainer.state.step == 0
@@ -76,3 +82,28 @@ def test_eval_profiling_cli_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         profile_serving.main(["--eval"])
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0, 2), (1, 3), (5, 6)], 4.0),
+    ([(0, 10), (2, 3), (4, 5)], 10.0),   # nested
+    ([(5, 6), (0, 1), (0.5, 5.5)], 6.0),  # out of order, chained
+    ([(1, 2), (2, 3)], 2.0),             # touching
+])
+def test_union_length_counts_overlaps_once(intervals, want):
+    assert profile_serving.union_length(intervals) == pytest.approx(want)
+
+
+def test_only_kernels_copies_and_memsets_count_as_device_time():
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(device, annotation):
+        return SimpleNamespace(device_type=device, is_user_annotation=annotation)
+
+    assert profile_serving._on_device(event(DeviceType.CUDA, False))
+    assert not profile_serving._on_device(event(DeviceType.CUDA, True))  # a range's projection
+    assert not profile_serving._on_device(event(DeviceType.CPU, False))
+    assert not profile_serving._on_device(event(DeviceType.CPU, True))

@@ -24,7 +24,7 @@ from yolo_for_turbines_tpu_torch.config import ModelConfig, TrainConfig
 from yolo_for_turbines_tpu_torch.tools import anchors as tanchors
 from yolo_for_turbines_tpu_torch.tools.demo import run_cli
 from yolo_for_turbines_tpu_torch.utils import plotting
-from yolo_for_turbines_tpu_torch.utils.profiling import StepTimer, trace_scope
+from yolo_for_turbines_tpu_torch.utils.profiling import trace_scope
 
 CLASSES = ["dirt", "damage"]
 
@@ -239,18 +239,6 @@ def test_plot_savefig(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 # Profiling
 # ---------------------------------------------------------------------------
-
-
-def test_step_timer():
-    t = StepTimer(capacity=3)
-    assert t.summary() == {}
-    for _ in range(5):
-        with t.measure():
-            pass
-    s = t.summary()
-    assert s["steps"] == 3 and len(t.samples) == 3
-    assert 0 <= s["p50_s"] <= s["p90_s"] <= s["p99_s"]
-    assert set(s) == {"steps", "mean_s", "p50_s", "p90_s", "p99_s"}
 
 
 def test_trace_scope_writes_a_loadable_trace(tmp_path):

@@ -39,6 +39,13 @@ same global batch, as the JAX ``Predictor(mesh=)``:
 
 Replicas are made identical when the predictor is built (rank 0's weights
 broadcast, ``sync_replicas``), so every rank of the mesh builds it.
+
+Under a running ``torch.profiler`` (and only then: ``utils/profiling.py``)
+``predict_image`` logs the spans ``predict_image`` > ``.letterbox``,
+``predict_batch``, ``.fetch`` (the boxes' copy to the host, which waits for
+the device) and ``.unletterbox``; ``predict_batch`` logs ``predict_batch`` >
+``.input`` (the copy of the input and the anchors to the device),
+``.forward`` and ``.postprocess`` (decode, NMS and the mesh's gather).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from .parallel import comm
 from .parallel.mesh import batch_group, batch_sharding, tree_map
 from .parallel.spatial import Layout, is_spatial, spatial_image_sharding
 from .utils.device import resolve_device
+from .utils.profiling import span
 
 
 def _letterbox_batch(np_images: List[np.ndarray], size: int, num_threads: int) -> np.ndarray:
@@ -226,26 +234,29 @@ class Predictor:
 
         Returns ((B, K, 6), (B, K) bool) tensors on the predictor's device;
         on a mesh, the whole batch's on every rank."""
-        with torch.inference_mode():
-            grid_sizes = cfg.grid_sizes_for(x.shape[1], self.model.strides)
-            x = self._shard(x)
-            scaled_anchors = torch.from_numpy(
-                self.anchors * np.asarray(grid_sizes, np.float32).reshape(-1, 1, 1)
-            ).to(self.device)
-            raw = self._heads(x)
-            boxes = decode_raw_all(
-                raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
-            )
-            kept, mask = batched_nms(
-                boxes,
-                iou_threshold=self.nms_iou_threshold,
-                obj_threshold=self.conf_threshold,
-                max_boxes=self.max_boxes,
-                portable=self._layout is not None,
-            )
-            if self.mesh is not None:
-                group = batch_group(self.mesh)
-                kept, mask = comm.all_gather(kept, group), comm.all_gather(mask, group)
+        with span("predict_batch"), torch.inference_mode():
+            with span("predict_batch.input"):
+                grid_sizes = cfg.grid_sizes_for(x.shape[1], self.model.strides)
+                x = self._shard(x)
+                scaled_anchors = torch.from_numpy(
+                    self.anchors * np.asarray(grid_sizes, np.float32).reshape(-1, 1, 1)
+                ).to(self.device)
+            with span("predict_batch.forward"):
+                raw = self._heads(x)
+            with span("predict_batch.postprocess"):
+                boxes = decode_raw_all(
+                    raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
+                )
+                kept, mask = batched_nms(
+                    boxes,
+                    iou_threshold=self.nms_iou_threshold,
+                    obj_threshold=self.conf_threshold,
+                    max_boxes=self.max_boxes,
+                    portable=self._layout is not None,
+                )
+                if self.mesh is not None:
+                    group = batch_group(self.mesh)
+                    kept, mask = comm.all_gather(kept, group), comm.all_gather(mask, group)
             return kept, mask
 
     def predict_images(
@@ -265,12 +276,16 @@ class Predictor:
     def predict_image(self, np_image: np.ndarray) -> List[List[float]]:
         """One HWC uint8 image -> NMS boxes in the original image's
         normalized frame [cx, cy, w, h, score, class]."""
-        h0, w0 = np_image.shape[:2]
-        img, _ = letterbox(np_image, None, self.image_size)
-        x = (img.astype(np.float32) / 255.0)[None]
-        kept, mask = self.predict_batch(x)
-        boxes = nms_to_list(kept[0], mask[0])
-        return unletterbox_boxes(boxes, (h0, w0), (self.image_size, self.image_size))
+        with span("predict_image"):
+            h0, w0 = np_image.shape[:2]
+            with span("predict_image.letterbox"):
+                img, _ = letterbox(np_image, None, self.image_size)
+                x = (img.astype(np.float32) / 255.0)[None]
+            kept, mask = self.predict_batch(x)
+            with span("predict_image.fetch"):
+                boxes = nms_to_list(kept[0], mask[0])
+            with span("predict_image.unletterbox"):
+                return unletterbox_boxes(boxes, (h0, w0), (self.image_size, self.image_size))
 
 
 def _trainable(num_classes: int, activation: str, backbone: str, seed: int):

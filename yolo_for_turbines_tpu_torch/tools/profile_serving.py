@@ -15,14 +15,16 @@ update) of the 2-class Darknet-53 with mish, as ``train()`` builds it, in
 bf16 autocast at 416px, on seeded noise images with one box each. The
 batch is 128 for serving and eval and 32 for a train step unless
 ``--batch`` says otherwise. Per path it prints one JSON line (wall ms per
-batch, device-busy ms per batch, the device's idle share) and the kernels
-with the most device time; ``--out`` also gets ``torch.profiler``'s full
-table. Needs a CUDA device.
+batch, device-busy ms per batch, the device's idle share, the host ms per
+call in each of the program's spans: ``utils/profiling.py``) and the
+kernels with the most device time; ``--out`` also gets ``torch.profiler``'s
+full table. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 
@@ -31,20 +33,42 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ..utils import profiling
+
 
 def profile_predict_batch(pred, x, **kwargs):
     """:func:`profile_calls` of ``pred.predict_batch(x)``."""
     return profile_calls(lambda: pred.predict_batch(x), torch.device(pred.device), **kwargs)
 
 
+def union_length(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: time covered
+    by at least one of them, overlaps counted once."""
+    covered, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            covered += b - max(a, reach)
+            reach = b
+    return covered
+
+
+def _on_device(event) -> bool:
+    """A kernel, copy or memset: not a host op (which also carries its
+    kernels' time), and not a range's projection onto the device's
+    timeline, which spans the idle time between its kernels too."""
+    return event.device_type != DeviceType.CPU and not event.is_user_annotation
+
+
 def profile_calls(call, device, iters: int = 2, warmup: int = 3, top: int = 12):
     """Profile ``iters`` calls of ``call()`` on ``device`` after ``warmup``.
 
     Returns (summary, table): summary has ``wall_ms`` and ``device_busy_ms``
-    per call (the device-side events' time; 0 on the CPU), ``idle_share``
-    = 1 - busy / wall, and ``top``, the kernels and copies with the most
-    device time per call as [name, ms, launches per call]; table is the
-    profiler's own."""
+    per call (the union of the device-side events' intervals, so work that
+    overlaps on two streams counts once; 0 on the CPU), ``idle_share`` =
+    1 - busy / wall, ``host_ms``, the host ms per call inside each of the
+    program's spans by name (``utils/profiling.py::spans``), and ``top``,
+    the kernels and copies with the most device time per call as [name, ms,
+    launches per call]; table is the profiler's own."""
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     for _ in range(warmup):
@@ -57,16 +81,21 @@ def profile_calls(call, device, iters: int = 2, warmup: int = 3, top: int = 12):
             call()
         if cuda:
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        t1 = time.perf_counter()
+    wall_ms = (t1 - t0) * 1e3 / iters
+    host_ms = collections.defaultdict(float)
+    for sp in profiling.spans(t0, t1):
+        host_ms[sp.name] += (sp.t1 - sp.t0) * 1e3 / iters
+    busy_ms = union_length([(e.time_range.start, e.time_range.end)
+                            for e in prof.events() if _on_device(e)]) / 1e3 / iters
     ka = prof.key_averages()
-    # device-side events only: an aten op also carries its kernels' time
-    kernels = [e for e in ka if e.device_type != DeviceType.CPU]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    kernels = [e for e in ka if _on_device(e)]
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     summary = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
+        "host_ms": dict(host_ms),
         "top": [[e.key, e.self_device_time_total / 1e3 / iters, e.count // iters]
                 for e in rows if e.self_device_time_total > 0],
     }

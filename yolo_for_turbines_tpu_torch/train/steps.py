@@ -34,6 +34,11 @@
   every rank; and under SP the gradient is a plain sum over data x space,
   which DDP's mean over the world would have to undo. Every rank gets the
   global loss terms.
+- Spans (``utils/profiling.py::span``, live only under a running
+  ``torch.profiler``): the step of :func:`make_train_step` is ``train_step``,
+  and :func:`train_step` opens ``train_step.forward`` (forward and loss),
+  ``train_step.backward`` (with the mesh's gradient all-reduce) and
+  ``train_step.optimizer``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch.nn as nn
 
 from ..config import TrainConfig
 from ..models.blocks import full_f32
+from ..utils.profiling import span
 from .evaluate import _forward
 from .loss import total_yolo_loss
 
@@ -185,17 +191,20 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, images: torch
     optimizer.zero_grad(set_to_none=True)
     f32 = compute_dtype == torch.float32
     reduce_counts = None if layout is None else layout.reduce_counts
+    autocast = (contextlib.nullcontext() if f32
+                else torch.autocast(images.device.type, dtype=compute_dtype))
     with full_f32() if f32 else contextlib.nullcontext():
-        with contextlib.nullcontext() if f32 else torch.autocast(images.device.type,
-                                                                 dtype=compute_dtype):
+        with span("train_step.forward"), autocast:
             total, comps = total_yolo_loss(model(images, layout=layout), targets,
                                            scaled_anchors, reduce_counts)
-        if layout is None:
-            total.backward()
-        else:
-            (total * layout.loss_weight).backward()
-            layout.reduce_gradients(p for p in model.parameters() if p.requires_grad)
-    optimizer.step()
+        with span("train_step.backward"):
+            if layout is None:
+                total.backward()
+            else:
+                (total * layout.loss_weight).backward()
+                layout.reduce_gradients(p for p in model.parameters() if p.requires_grad)
+    with span("train_step.optimizer"):
+        optimizer.step()
     return _metrics(total, comps, layout)
 
 
@@ -229,13 +238,14 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     layout = _layout(mesh)
 
     def step(state: TrainState, images, targets, scaled_anchors):
-        lr = scheduled_lr(state.step, state.hyper)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        metrics = train_step(state.model, state.optimizer, images, targets, scaled_anchors,
-                             dtype, layout)
-        state.step += 1
-        return metrics
+        with span("train_step"):
+            lr = scheduled_lr(state.step, state.hyper)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            metrics = train_step(state.model, state.optimizer, images, targets,
+                                 scaled_anchors, dtype, layout)
+            state.step += 1
+            return metrics
 
     return step
 

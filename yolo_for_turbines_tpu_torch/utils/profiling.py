@@ -1,20 +1,42 @@
-"""Profiling hooks: ``torch.profiler`` traces and per-step wall timing
+"""Profiling hooks: ``torch.profiler`` traces and the program's own spans
 (counterpart of ``yolo_for_turbines_tpu/utils/profiling.py``).
 
 ``trace_scope`` captures a trace of the host and, when a card is present,
-of the device, that TensorBoard's profiler plugin and Perfetto load;
-``StepTimer`` tracks host-side step latency percentiles cheaply enough to
-stay on in production. The JAX package's ``enable_compilation_cache`` has
-no counterpart: the port compiles nothing at run time but its CUDA kernels,
-whose build ``ops/kernels`` caches in ``_build/``.
+of the device, that TensorBoard's profiler plugin and Perfetto load.
+
+``span(name)`` marks a phase of the program (the single-image path's
+letterbox, copies, forward and fetch; the train step's forward, backward and
+update). It does nothing but one ``torch.autograd._profiler_enabled()``
+check unless a ``torch.profiler`` is running: a running profiler (an
+operator's ``trace_scope``, or a benchmark's) is the only switch. Under
+one, a span opens a ``record_function`` range, which lands on the
+profiler's timeline beside the kernels and copies it launches, and logs an
+entry on the host clock (``time.perf_counter``) in a bounded in-memory log
+that ``spans()`` reads. Nothing is written out on the way.
+
+The JAX package's ``StepTimer`` has no counterpart, and its
+``enable_compilation_cache`` none either: the port compiles nothing at run
+time but its CUDA kernels, whose build ``ops/kernels`` caches in
+``_build/``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List, Optional
+
+import torch
+
+LOG_ENTRIES = 65536
+_log: collections.deque = collections.deque(maxlen=LOG_ENTRIES)
+_ids = itertools.count(1)
+_local = threading.local()
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -22,7 +44,6 @@ def trace_scope(log_dir):
     """Capture a ``torch.profiler`` trace of the block into ``log_dir``
     (``<worker>.<timestamp>.pt.trace.json``): CPU activity, and CUDA
     activity when a CUDA device is available. Yields the directory."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -33,39 +54,53 @@ def trace_scope(log_dir):
         yield log_dir
 
 
-class StepTimer:
-    """Host wall-clock step timer with percentile summaries."""
+class Span:
+    """One logged span: ``name``, ``t0`` and ``t1`` in seconds of
+    ``time.perf_counter()`` (``t1`` is None while it is open), its ``id``,
+    its ``parent``'s id (None at a root) and ``request``, the id of the
+    outermost span open on its thread when it opened (its own at a root),
+    which every span of one request or step shares."""
 
-    def __init__(self, capacity: int = 10_000):
-        self.samples: List[float] = []
-        self.capacity = capacity
-        self._t0: Optional[float] = None
+    __slots__ = ("name", "t0", "t1", "id", "parent", "request", "_range")
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
+    def __init__(self, name: str):
+        self.name = name
 
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._t0
-        if len(self.samples) < self.capacity:
-            self.samples.append(dt)
-        return dt
+    def __enter__(self) -> "Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.id = next(_ids)
+        outer = stack[-1] if stack else None
+        self.parent = outer.id if outer is not None else None
+        self.request = outer.request if outer is not None else self.id
+        self.t1 = None
+        stack.append(self)
+        _log.append(self)
+        self._range = torch.profiler.record_function(self.name)
+        self.t0 = time.perf_counter()
+        self._range.__enter__()
+        return self
 
-    @contextlib.contextmanager
-    def measure(self):
-        self.start()
-        yield
-        self.stop()
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+        self.t1 = time.perf_counter()
+        self._range = None
+        _local.stack.pop()
 
-    def summary(self) -> Dict[str, float]:
-        import numpy as np
 
-        if not self.samples:
-            return {}
-        arr = np.asarray(self.samples)
-        return {
-            "steps": len(arr),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p90_s": float(np.percentile(arr, 90)),
-            "p99_s": float(np.percentile(arr, 99)),
-        }
+def span(name: str):
+    """A context manager around one phase named ``name``: a :class:`Span`
+    while a ``torch.profiler`` runs, else a shared ``nullcontext``."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return Span(name)
+
+
+def spans(since: Optional[float] = None, until: Optional[float] = None) -> List[Span]:
+    """The closed spans of the log (its last ``LOG_ENTRIES`` opened) whose
+    ``t0`` lies in [since, until] on the ``time.perf_counter()`` clock, in
+    the order they opened."""
+    lo = float("-inf") if since is None else since
+    hi = float("inf") if until is None else until
+    return [s for s in list(_log) if s.t1 is not None and lo <= s.t0 <= hi]
