@@ -34,17 +34,29 @@ Phases, one JSON line each:
           layer path (im2col + torch._int_mm + epilogue); IGMMA and UTMALDG
           instructions of the built kernel counted in cuobjdump's SASS (both
           must be present);
+  k5      a folded conv's epilogue (bias, activation, residual add in one
+          pass, in place) against its plain torch version at every width
+          the models give it (B = 2; leaky, mish and identity, with and
+          without a skip; the heads' odd widths; sizes that leave a scalar
+          tail; views misaligned by one element): leaky and identity equal
+          bit for bit, mish at most one bf16 step apart on under 1% of
+          elements; CUDA-event times at B = 128 of 416x416x32, 208x208x64,
+          52x52x256 with a skip and 13x13x255 (each launch on a tensor
+          outside L2) beside their byte bounds, the plain version and the
+          aten composition it replaced;
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
+          K5 exactly 59 times per predict_batch at B = 8 and 128;
           K1 and K2 must launch, outputs must be finite and well shaped,
           and raw heads must agree with an f32 CPU forward of the same weights;
   main_f32  the same model with compute_dtype=float32 (TF32 off),
-          predict_batch at B = 2: K2 is bf16 only, so it must not launch (the
-          stage takes the cuDNN layer path) while K1 must, and the raw heads
+          predict_batch at B = 2: K2 and K5 are bf16 only, so they must not
+          launch (the stage takes the cuDNN layer path, every conv its
+          separate epilogue ops) while K1 must, and the raw heads
           must agree with the f32 CPU forward;
   main_int8  the same model quantized (int8 PTQ, calibrated on 8 seeded
           images) and served through the same entry points: K1 and K4 must
-          launch, outputs must be finite and well shaped, and against the
+          launch (K5 never), outputs must be finite and well shaped, and against the
           port's int8 CPU forward of the same qparams the s8 trunk codes
           each head reads must agree and the raw heads must agree (cosine);
           a predictor built for 608px, quantized the same way and fed the
@@ -116,7 +128,8 @@ Phases, one JSON line each:
           process, with K1 once and K2 (bf16) or K4 (int8) 8 times per
           predict_batch; ExportedPredictor on the card launches no kernel,
           its masks equal and boxes within EXPORT_BOX_ATOL of the live
-          predictor's on the plain layer path (bf16: fuse_resblocks=False;
+          predictor's on the plain layer path (bf16: fuse_resblocks=False
+          and each conv's epilogue on separate ops;
           int8: as loaded, K4's codes being the layer path's); .pt2 sizes
           against the weights; images/s of both; tools.demo on one JPEG:
           K1 exactly once, the PNG at the image's size, its count equal to
@@ -241,6 +254,25 @@ HEAD_RTOL_F32 = 1e-6
 # the codes must be equal.
 K4_MISH_MAX_CODES = 1
 K4_MISH_MAX_FRAC = 0.01
+# K5 (the folded conv's epilogue) against its plain version, which runs the
+# same f32 operations and rounds once: leaky and identity equal bit for bit;
+# with mish the kernel's tanhf/log1pf/expf may differ from torch's CUDA mish
+# by an ulp, which moves the bf16 result by at most one step at a tie.
+K5_MISH_MAX_FRAC = 0.01
+# K5 launches per bf16 Darknet-53 predict_batch at 416px: every folded conv
+# outside the 26x26x512 stage, which K2 runs
+K5_PER_CALL = 59
+# K5's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, activation,
+# skip) of the stem conv, the first downsample, a 52x52 residual block's 3x3
+# (the block's input added) and the 13x13 head's 1x1
+K5_TIMED = ((416, 32, "leaky_relu", False), (208, 64, "leaky_relu", False),
+            (52, 256, "leaky_relu", True), (13, 255, "identity", False))
+# K5 checked besides at B = 2: every width the models give it, the heads'
+# odd ones, widths whose channel period passes a block's 256 threads, and
+# sizes that leave a scalar tail (B * H * W * C % 8 != 0)
+K5_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
+              (13, 13, 1024), (13, 13, 255), (5, 7, 255), (3, 5, 21), (2, 3, 3), (3, 3, 1),
+              (2, 2, 2056), (3, 1, 1023))
 # int8 card forward against the port's int8 CPU forward from the same
 # qparams. The trunk runs the same integer products and the same f32
 # epilogue ops in the same order on both (K4 equals its plain version), so
@@ -730,6 +762,103 @@ def phase_k4(dev, rng):
             "bound_by": out["26x26x512_B128_bound_by"], "library_ms": None}
 
 
+def k5_inputs(b, h, w, c, gen, dev, with_skip):
+    def nhwc(scale):
+        t = torch.randn((b, h, w, c), generator=gen, device=dev) * scale
+        return t.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW, stored channels_last
+
+    bias = (torch.randn(c, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    return nhwc(1.0), bias, nhwc(1.0) if with_skip else None
+
+
+def k5_check(y, bias, activation, skip, what, out):
+    from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
+
+    got = ek.conv_epilogue(y.clone(memory_format=torch.channels_last), bias, activation, skip)
+    torch.cuda.synchronize()
+    want = ek.conv_epilogue_reference(y, bias, activation, skip)
+    # the bit patterns of finite bf16 values of one sign are consecutive
+    # integers: their difference counts bf16 steps
+    a, b = got.view(torch.int16).int(), want.view(torch.int16).int()
+    differing, steps = int((a != b).sum()), int((a - b).abs().max())
+    out["checks"].append({"case": what, "activation": activation, "skip": skip is not None,
+                          "differing": differing, "max_bf16_steps": steps})
+    exact = activation != "mish"
+    if differing if exact else (steps > 1 or differing > K5_MISH_MAX_FRAC * got.numel()):
+        emit(out)
+        raise AssertionError(f"K5 differs from plain: {out['checks'][-1]}")
+
+
+def phase_k5(dev):
+    """K5 against its plain version at every width the models give it (both
+    activations, identity, with and without a skip; a misaligned view takes
+    the one-element variant), then its time at Darknet-53's B = 128 shapes
+    beside its byte bound, the plain version and the composition of aten
+    ops it replaced (the conv's bias add, the activation, ``skip + y``)."""
+    from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {"phase": "k5", "kernel": "conv_epilogue", "checks": []}
+    ek.launches = 0
+    for h, w, c in K5_CHECKED:
+        for activation in ("leaky_relu", "mish", "identity"):
+            for with_skip in (False, True):
+                y, bias, skip = k5_inputs(2, h, w, c, gen, dev, with_skip)
+                k5_check(y, bias, activation, skip, f"2x{h}x{w}x{c}", out)
+    # 16-byte vectors need y and skip 16-byte aligned: views one element
+    # into their storage take the one-element variant
+    n = 2 * 13 * 13 * 64
+    for which in ("y", "skip"):
+        y, bias, skip = k5_inputs(2, 13, 13, 64, gen, dev, True)
+        base = torch.empty(n + 8, dtype=torch.bfloat16, device=dev)
+        view = base[1:n + 1].view(2, 13, 13, 64).permute(0, 3, 1, 2)
+        view.copy_(y if which == "y" else skip)
+        args = (view, bias, skip) if which == "y" else (y, bias, view)
+        k5_check(args[0], args[1], "leaky_relu", args[2], f"{which} misaligned", out)
+    out["check_launches"] = ek.launches
+
+    def composition(y, bias, activation, skip):
+        y = y.add_(bias[:, None, None])  # what F.conv2d's cuDNN path does
+        y = torch.nn.functional.leaky_relu(y, 0.1) if activation == "leaky_relu" else y
+        return y if skip is None else skip + y
+
+    rows = []
+    for hw, c, activation, with_skip in K5_TIMED:
+        y, bias, skip = k5_inputs(128, hw, hw, c, gen, dev, with_skip)
+        k5_check(y, bias, activation, skip, f"128x{hw}x{hw}x{c}", out)
+        nbytes = y.numel() * 2 * (3 if with_skip else 2) + c * 2
+        # copies enough to outrun the 50 MB L2: each launch finds its
+        # tensor cold, as after a conv that wrote more than L2 holds
+        copies = [y.clone(memory_format=torch.channels_last)
+                  for _ in range(max(1, -(-int(150e6) // nbytes)))]
+        turn = iter(range(1 << 30))
+
+        def kernel():
+            ek.conv_epilogue(copies[next(turn) % len(copies)], bias, activation, skip)
+
+        def comp():
+            composition(copies[next(turn) % len(copies)], bias, activation, skip)
+
+        iters = max(10, min(200, int(2e9 // nbytes)))
+        ms, plain_ms = ab_ms(kernel, lambda: ek.conv_epilogue_reference(y, bias, activation, skip),
+                             iters=iters, plain_iters=max(3, iters // 10))
+        bound_ms, bound_by = bound_of(nbytes, 0.0, BF16_FLOPS)
+        name = f"{hw}x{hw}x{c}" + ("_skip" if with_skip else "")
+        row = {"shape": name, "B": 128, "activation": activation, "ms": ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "gb_per_s": nbytes / ms / 1e6, "plain_ms": plain_ms,
+               "composition_ms": cuda_ms(comp, iters), "copies": len(copies)}
+        out[name] = row
+        rows.append(row)
+        del y, skip, copies
+        torch.cuda.empty_cache()
+    emit(out)
+    worst = min(rows, key=lambda r: r["share_of_bound"])
+    return {"ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None, "timed": rows, "least_share_of_bound": worst["share_of_bound"]}
+
+
 def full_model():
     from yolo_for_turbines_tpu_torch.config import ModelConfig
     from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
@@ -776,12 +905,28 @@ def drive(pred, images, batches, out) -> None:
 def phase_main(dev):
     from yolo_for_turbines_tpu_torch.inference import Predictor
     from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
-    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        epilogue_kernel,
+        iou_kernel,
+        nms_kernel,
+        resblock_kernel,
+    )
 
     model_cfg, plan, tree = full_model()
     pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev)
     images, batches = serving_inputs(dev)
     out = {"phase": "main", "model": "darknet53 yolov3, 80 classes, 416px, bf16"}
+    # K5 once per folded conv outside K2's stage: 36 of the backbone's 52,
+    # 8 single neck convs and 5 at each of the 3 "S" entries (a block
+    # without a residual, a 1x1, the head's 3x3 and 1x1)
+    per_call = {}
+    for b, x in batches.items():
+        epilogue_kernel.launches = 0
+        pred.predict_batch(x)
+        per_call[b] = epilogue_kernel.launches
+    out["conv_epilogue_launches_per_predict_batch"] = per_call
+    require(all(n == K5_PER_CALL for n in per_call.values()),
+            f"K5 launches per bf16 predict_batch {per_call}, not {K5_PER_CALL}")
 
     nms_kernel.launches = 0
     resblock_kernel.launches = 0
@@ -823,7 +968,12 @@ def phase_main_f32(dev, x1, cpu_heads):
     must leave the 26x26x512 stage on the layer path."""
     from yolo_for_turbines_tpu_torch.inference import Predictor
     from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
-    from yolo_for_turbines_tpu_torch.ops.kernels import iou_kernel, nms_kernel, resblock_kernel
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        epilogue_kernel,
+        iou_kernel,
+        nms_kernel,
+        resblock_kernel,
+    )
 
     model_cfg, plan, tree = full_model()
     pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev,
@@ -835,11 +985,13 @@ def phase_main_f32(dev, x1, cpu_heads):
     nms_kernel.launches = 0
     resblock_kernel.launches = 0
     iou_kernel.launches = 0
+    epilogue_kernel.launches = 0
     kept, mask = pred.predict_batch(x)
     torch.cuda.synchronize()
     launches = {"greedy_nms": nms_kernel.launches,
                 "fused_residual_stage": resblock_kernel.launches,
-                "pairwise_iou": iou_kernel.launches}
+                "pairwise_iou": iou_kernel.launches,
+                "conv_epilogue": epilogue_kernel.launches}
     out["launches"] = launches
     require(kept.shape == (2, K, 6) and mask.shape == (2, K) and mask.dtype == torch.bool
             and bool(torch.isfinite(kept).all()), "float32 predict_batch misshapen or not finite")
@@ -847,8 +999,8 @@ def phase_main_f32(dev, x1, cpu_heads):
     errs = [((d.float().cpu() - c).norm() / c.norm()).item() for d, c in zip(dev_heads, cpu_heads)]
     out["head_rel_rms_err"] = errs
     emit(out)
-    if launches["fused_residual_stage"] or not launches["greedy_nms"]:
-        raise AssertionError(f"float32 path: K2 must not launch and K1 must: {launches}")
+    if launches["fused_residual_stage"] or launches["conv_epilogue"] or not launches["greedy_nms"]:
+        raise AssertionError(f"float32 path: K2 and K5 must not launch and K1 must: {launches}")
     if not max(errs) <= HEAD_RTOL_F32:
         raise AssertionError(f"float32 raw heads differ from the f32 CPU forward: {errs}")
     return launches
@@ -864,6 +1016,7 @@ def phase_main_int8(dev, bf16_rates):
     from yolo_for_turbines_tpu_torch.models.convert import qparams_from_numpy
     from yolo_for_turbines_tpu_torch.models.quantize import apply_inference_int8
     from yolo_for_turbines_tpu_torch.ops.kernels import (
+        epilogue_kernel,
         iou_kernel,
         nms_kernel,
         resblock_int8_kernel,
@@ -887,17 +1040,20 @@ def phase_main_int8(dev, bf16_rates):
     resblock_int8_kernel.launches = 0
     resblock_kernel.launches = 0
     iou_kernel.launches = 0
+    epilogue_kernel.launches = 0
     drive(pred, images, batches, out)
     launches = {"greedy_nms": nms_kernel.launches,
                 "fused_residual_stage_int8": resblock_int8_kernel.launches}
     out["launches"] = launches
     out["bf16_fused_residual_stage_launches"] = resblock_kernel.launches
+    out["conv_epilogue_launches"] = epilogue_kernel.launches
     out["pairwise_iou_launches"] = iou_kernel.launches
     out["bf16_images_per_s"] = bf16_rates
-    if not all(launches.values()) or resblock_kernel.launches:
+    if not all(launches.values()) or resblock_kernel.launches or epilogue_kernel.launches:
         emit(out)
         raise AssertionError(f"the int8 path did not run its kernels: {out['launches']}, "
-                             f"bf16 stage launches {resblock_kernel.launches}")
+                             f"bf16 stage launches {resblock_kernel.launches}, "
+                             f"K5 launches {epilogue_kernel.launches}")
 
     # one image through the int8 forward on the card and the port's int8
     # CPU forward from the same qparams (f32 heads): the s8 trunk codes
@@ -1578,6 +1734,21 @@ def fresh_cudnn():
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
 
 
+@contextlib.contextmanager
+def plain_epilogues():
+    """Every folded conv on its separate ops (the conv's bias add, the
+    activation, ``skip + y``), as a program traced on the CPU runs them,
+    restored afterwards: the router told that K5 takes nothing."""
+    from yolo_for_turbines_tpu_torch.models import blocks
+
+    saved = blocks.epilogue_wins
+    blocks.epilogue_wins = lambda x, act, skip=None: False
+    try:
+        yield
+    finally:
+        blocks.epilogue_wins = saved
+
+
 def swapped_concat(plan, tree, at: int):
     """``tree`` as a model reads it whose concat at plan entry ``at`` takes
     its two inputs the other way round: a CSP ``fuse`` [shortcut,
@@ -1864,12 +2035,14 @@ DEPLOY_DIR = TRAIN_DIR / "deploy"
 DEPLOY_BATCHES = (8, 128)
 DEPLOY_CALIB_IMAGES = 8
 # The exported program (the plain layer path, the plain NMS sweep) against
-# the live predictor of the same bundle built with fuse_resblocks=False (the
-# same layer path, K1 for the sweep): keep masks equal and boxes within
+# the live predictor of the same bundle built with fuse_resblocks=False and
+# run with its convs' epilogues on separate ops (plain_epilogues: the same
+# layer path, K1 for the sweep): keep masks equal and boxes within
 # EXPORT_BOX_ATOL. Both read bit for bit equal, bf16 and int8, at B = 8 and
 # 128 (an H100): the same aten ops on the same weights, memory formats and
 # cuDNN choices. The exported program against the live predictor with its
-# kernels is printed beside it, not gated: K2 sums in another order, and
+# kernels is printed beside it, not gated: K2 sums in another order, K5
+# rounds once where the separate ops round up to three times, and
 # K4's epilogue multiplies by reciprocal scales where the layer path
 # divides, which moves a requant code at a .5 tie (0.4-0.9% of keep-mask
 # entries differ at B = 128).
@@ -1906,7 +2079,8 @@ def served_paths(live, ref, exported, control, batches, out):
             launches.append(kernel_counts())
             kr, mr = ref.predict_batch(x)
             ok[f"B{b}_live_equals_in_process"] = bool(torch.equal(kl, kr) and torch.equal(ml, mr))
-            kc, mc = control.predict_batch(x)
+            with plain_epilogues():
+                kc, mc = control.predict_batch(x)
             zero_counts()
             ke, me = exported[b].predict_batch(x)
             torch.cuda.synchronize()
@@ -2835,6 +3009,7 @@ def main() -> int:
     k2 = phase_k2(dev, gen)
     k3 = phase_k3(dev, gen)
     k4 = phase_k4(dev, np.random.default_rng(SEED))
+    k5 = phase_k5(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
@@ -2904,6 +3079,12 @@ def main() -> int:
                               "converge": launches_conv["fused_residual_stage_int8"],
                               "finetune": launches_ft["fused_residual_stage_int8"]},
          **k4},
+        # replaces no TPU kernel: XLA fused the epilogue into its conv
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/epilogue.cu", "replaces": None,
+         "launches_by_path": {"main_per_predict_batch": K5_PER_CALL,
+                              "main_f32": launches_f32["conv_epilogue"]},
+         **k5},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,306 @@
+"""Torch port: a folded conv's epilogue (kernel K5, ``csrc/epilogue.cu``) and
+the routing of ``FoldedConv`` to it.
+
+The plain version computes ``skip + act(y + bias)`` in f32 and rounds once:
+against the same function in float64, rounded once, it is off by at most
+half a bf16 step of the result plus the f32 arithmetic's own error, where
+the composition it replaces (three bf16 roundings) is off by up to three
+half steps. The routing leaves every input K5 does not take (CPU, float32,
+NCHW memory, SP) on the composition of separate ops, bit for bit as before.
+The kernel itself runs only on the card: ``chip_smoke.py`` phase k5 holds it
+to the plain version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from yolo_for_turbines_tpu_torch.config import ModelConfig
+from yolo_for_turbines_tpu_torch.models import blocks as tblocks
+from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+from yolo_for_turbines_tpu_torch.models.cspdarknet import CSPStage, PlanCSP
+from yolo_for_turbines_tpu_torch.models.yolov3 import (
+    PlanResidual,
+    ResidualStage,
+    build_plan,
+    init_plan,
+)
+from yolo_for_turbines_tpu_torch.ops import kernels
+from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
+from yolo_for_turbines_tpu_torch.parallel.spatial import Layout, create_spatial_mesh
+
+from helpers import MINI_LAYERS
+
+CL = torch.channels_last
+F64_ACTS = {
+    "identity": lambda t: t,
+    "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
+    "mish": F.mish,
+}
+
+
+def _bf16(shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16)
+
+
+def _nhwc(shape, seed, dtype=torch.bfloat16):
+    return _bf16(shape, seed).to(dtype).contiguous(memory_format=CL)
+
+
+def _half_step(t: torch.Tensor) -> torch.Tensor:
+    """Half the spacing of bf16 numbers at |t| (8 significant bits)."""
+    _, e = torch.frexp(t.double())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float64), e.double() - 9)
+
+
+@pytest.mark.parametrize("c", [64, 21, 255])
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("activation", ["identity", "leaky_relu", "mish"])
+def test_plain_rounds_once(activation, with_skip, c):
+    y = _nhwc((2, c, 3, 5), 1)
+    bias = _bf16((c,), 2, 0.5)
+    skip = _nhwc((2, c, 3, 5), 3) if with_skip else None
+    t = y.double() + bias.double()[:, None, None]
+    want = F64_ACTS[activation](t) + (skip.double() if with_skip else 0.0)
+    before = ek.launches
+    out = y.clone(memory_format=CL)
+    got = ek.conv_epilogue(out, bias, activation, skip)
+    # the CPU wrapper takes the plain version, in place
+    assert got is out and ek.launches == before
+    assert torch.equal(got, ek.conv_epilogue_reference(y, bias, activation, skip))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=CL)
+    # f32 arithmetic before the one rounding: a few f32 steps of the terms
+    f32_err = 2.0 ** -20 * (t.abs() + want.abs() + (skip.double().abs() if with_skip else 0.0))
+    err = (got.double() - want).abs()
+    bound = _half_step(torch.maximum(want.abs(), got.double().abs())) + f32_err
+    assert bool((err <= bound).all()), float((err - bound).max())
+    # three roundings (the composition) exceed that on some elements
+    comp = F64_ACTS[activation]((y + bias[:, None, None]).float()).to(torch.bfloat16)
+    if with_skip:
+        comp = skip + comp
+    if activation != "identity" or with_skip:
+        assert bool(((comp.double() - want).abs() > bound).any())
+
+
+class _Like:
+    """What ``epilogue_wins`` reads of a tensor."""
+
+    def __init__(self, cuda=True, dtype=torch.bfloat16, nhwc=True):
+        self.is_cuda, self.dtype, self._nhwc = cuda, dtype, nhwc
+
+    def is_contiguous(self, memory_format=torch.contiguous_format):
+        return self._nhwc if memory_format == CL else not self._nhwc
+
+
+@pytest.mark.parametrize("x,act,skip,wins", [
+    (_Like(), tblocks.leaky_relu, None, True),
+    (_Like(), tblocks.mish, _Like(), True),
+    (_Like(), None, None, True),  # a head's last 1x1: identity
+    (_Like(cuda=False), tblocks.leaky_relu, None, False),
+    (_Like(dtype=torch.float32), tblocks.leaky_relu, None, False),
+    (_Like(dtype=torch.float16), tblocks.leaky_relu, None, False),
+    (_Like(nhwc=False), tblocks.leaky_relu, None, False),
+    (_Like(), tblocks.leaky_relu, _Like(nhwc=False), False),
+    (_Like(), tblocks.leaky_relu, _Like(dtype=torch.float32), False),
+    (_Like(), tblocks.leaky_relu, _Like(cuda=False), False),
+    (_Like(), torch.relu, None, False),  # an activation K5 does not know
+])
+def test_routing_takes_only_what_the_kernel_takes(x, act, skip, wins):
+    assert tblocks.epilogue_wins(x, act, skip) is wins
+
+
+def _folded_conv(cin, cout, kernel, stride, seed, dtype):
+    conv = tblocks.FoldedConv(cin, cout, kernel, stride)
+    with torch.no_grad():
+        conv.weight.copy_(_bf16(conv.weight.shape, seed, 0.3).float())
+        conv.bias.copy_(_bf16((cout,), seed + 1, 0.5).float())
+    return conv.to(dtype=dtype, memory_format=CL)
+
+
+CASES = [(act, with_skip) for act in (None, tblocks.leaky_relu, tblocks.mish)
+         for with_skip in (False, True)]
+
+
+@pytest.mark.parametrize("memory_format", [CL, torch.contiguous_format])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,with_skip", CASES)
+def test_folded_conv_keeps_the_composition_off_the_card(act, with_skip, dtype, memory_format):
+    conv = _folded_conv(8, 16, 3, 1, 4, dtype)
+    x = _nhwc((2, 8, 6, 5), 5, dtype).contiguous(memory_format=memory_format)
+    skip = _nhwc((2, 16, 6, 5), 6, dtype) if with_skip else None
+    before = ek.launches
+    got = conv(x, act, skip=skip)
+    want = F.conv2d(x, conv.weight, conv.bias, padding=1)
+    want = act(want) if act is not None else want
+    want = skip + want if with_skip else want
+    assert ek.launches == before
+    assert torch.equal(got, want)
+
+
+def _stage_weights(stage, seed, dtype):
+    with torch.no_grad():
+        for i, p in enumerate(stage.parameters()):
+            p.copy_(_bf16(p.shape, seed + i, 0.2).float())
+    return stage.to(dtype=dtype, memory_format=CL)
+
+
+@pytest.mark.parametrize("use_residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_stage_layer_path_bit_for_bit(dtype, use_residual):
+    entry = PlanResidual(channels=16, num_blocks=3, use_residual=use_residual)
+    stage = _stage_weights(ResidualStage(entry), 10, dtype)
+    x = _nhwc((2, 16, 7, 6), 11, dtype)
+    act = tblocks.leaky_relu
+    before = ek.launches
+    got = stage(x, act, "leaky_relu", fuse=False)
+    want = x
+    for blk in stage.blocks:  # the layer path before K5: x + y after each block
+        c1, c2 = blk["conv1"], blk["conv2"]
+        y = act(F.conv2d(want, c1.weight, c1.bias))
+        y = act(F.conv2d(y, c2.weight, c2.bias, padding=1))
+        want = want + y if use_residual else y
+    assert ek.launches == before
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csp_stage_bit_for_bit(dtype):
+    stage = _stage_weights(CSPStage(PlanCSP(channels=16, num_blocks=2)), 20, dtype)
+    x = _nhwc((2, 16, 6, 6), 21, dtype)
+    act = tblocks.mish
+    before = ek.launches
+    got = stage(x, act)
+
+    def conv(c, t):
+        return act(F.conv2d(t, c.weight, c.bias, padding=c.padding))
+
+    shortcut = conv(stage.split1, x)
+    y = conv(stage.split2, x)
+    for blk in stage.blocks:
+        y = y + conv(blk["conv2"], conv(blk["conv1"], y))
+    want = conv(stage.fuse, torch.cat([conv(stage.transition, y), shortcut], dim=1))
+    assert ek.launches == before
+    assert torch.equal(got, want)
+
+
+@pytest.fixture
+def routed(monkeypatch):
+    """Every folded conv routed as on the card, the epilogue's calls
+    recorded: on the CPU the wrapper runs the plain version."""
+    calls = []
+
+    def spy(y, bias, activation, skip):
+        calls.append((activation, skip is not None))
+        return ek.conv_epilogue(y, bias, activation, skip)
+
+    monkeypatch.setattr(tblocks, "epilogue_wins", lambda x, act, skip=None: True)
+    monkeypatch.setattr(tblocks, "conv_epilogue", spy)
+    return calls
+
+
+@pytest.mark.parametrize("act,with_skip", CASES)
+def test_routed_conv_is_a_bias_free_conv_and_the_epilogue(routed, act, with_skip):
+    conv = _folded_conv(8, 21, 1, 1, 30, torch.bfloat16)
+    x = _nhwc((2, 8, 5, 4), 31)
+    skip = _nhwc((2, 21, 5, 4), 32) if with_skip else None
+    got = conv(x, act, skip=skip)
+    name = tblocks.EPILOGUE_ACTIVATIONS[act]
+    want = ek.conv_epilogue_reference(F.conv2d(x, conv.weight), conv.bias, name, skip)
+    assert routed == [(name, with_skip)]
+    assert torch.equal(got, want)
+
+
+def test_routed_residual_stage_passes_each_block_input_as_skip(routed):
+    stage = _stage_weights(ResidualStage(PlanResidual(channels=16, num_blocks=2)), 40,
+                           torch.bfloat16)
+    x = _nhwc((1, 16, 5, 5), 41)
+    got = stage(x, tblocks.leaky_relu, "leaky_relu", fuse=False)
+    assert routed == [("leaky_relu", False), ("leaky_relu", True)] * 2
+    want = x
+    for blk in stage.blocks:
+        c1, c2 = blk["conv1"], blk["conv2"]
+        y = ek.conv_epilogue_reference(F.conv2d(want, c1.weight), c1.bias, "leaky_relu")
+        want = ek.conv_epilogue_reference(F.conv2d(y, c2.weight, padding=1), c2.bias,
+                                          "leaky_relu", want)
+    assert torch.equal(got, want)
+
+
+def _mini_model(dtype):
+    cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
+    plan = build_plan(cfg)
+    model = folded_from_numpy(plan, init_plan(plan, torch.Generator().manual_seed(0)), cfg)
+    return model.to(dtype=dtype, memory_format=CL).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_forward_off_the_card_and_under_sp_launches_nothing(routed, dtype):
+    """The mini Darknet-53 at 64px: SP (a one-rank ``Layout``: every conv
+    takes ``rows``) keeps the separate ops even where the router would say
+    yes, bit for bit as the unrouted forward; the routed forward takes the
+    epilogue once at every folded conv."""
+    model = _mini_model(dtype)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    before = ek.launches
+    with torch.inference_mode():
+        sp = model(x, layout=Layout(create_spatial_mesh(device="cpu")))
+        assert routed == []
+        routed_heads = model(x)
+        n_routed = len(routed)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tblocks, "epilogue_wins", lambda x, act, skip=None: False)
+            plain = model(x)
+    assert ek.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(sp, plain))
+    n_convs = sum(isinstance(m, tblocks.FoldedConv) for m in model.modules())
+    assert n_routed == n_convs
+    for r, p in zip(routed_heads, plain):
+        assert r.shape == p.shape
+        rel = float((r.float() - p.float()).norm() / p.float().norm())
+        # measured 0 (f32) and at most 3.2e-5 (bf16: one rounding per layer
+        # where there were up to three)
+        assert rel < (1e-6 if dtype == torch.float32 else 1e-3), rel
+
+
+WRONG = {
+    "not 4-D": (lambda y, b, s: (y[0], b, s), "float \\(B, C, H, W\\)"),
+    "integer": (lambda y, b, s: (y.to(torch.int16), b, s), "float \\(B, C, H, W\\)"),
+    "NCHW memory": (lambda y, b, s: (y.contiguous(), b, s), "y must be stored channels_last"),
+    "bias shape": (lambda y, b, s: (y, b[:-1], s), "bias must be"),
+    "bias dtype": (lambda y, b, s: (y, b.float(), s), "bias must be"),
+    "bias strided": (lambda y, b, s: (y, torch.stack([b, b], 1)[:, 0], s), "contiguous"),
+    "skip shape": (lambda y, b, s: (y, b, s[:1]), "skip must be"),
+    "skip dtype": (lambda y, b, s: (y, b, s.float()), "skip must be"),
+    "skip NCHW": (lambda y, b, s: (y, b, s.contiguous()), "skip must be stored channels_last"),
+    "skip is y": (lambda y, b, s: (y, b, y), "overlaps"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRONG))
+def test_wrapper_rejects_bad_input(case):
+    make, match = WRONG[case]
+    y, b, s = make(_nhwc((2, 16, 3, 3), 50), _bf16((16,), 51), _nhwc((2, 16, 3, 3), 52))
+    with pytest.raises(ValueError, match=match):
+        ek.conv_epilogue(y, b, "leaky_relu", s)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    y, b = _nhwc((2, 16, 3, 3), 53), _bf16((16,), 54)
+    with pytest.raises(ValueError, match="unsupported activation"):
+        ek.conv_epilogue(y, b, "relu")
+    # off the CPU only bf16, and only on CUDA: no silent fallback
+    meta = torch.empty((2, 16, 3, 3), device="meta").contiguous(memory_format=CL)
+    with pytest.raises(ValueError, match="takes bf16"):
+        ek.conv_epilogue(meta, torch.empty(16, device="meta"))
+    meta = meta.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ek.conv_epilogue(meta, torch.empty(16, device="meta", dtype=torch.bfloat16))
+
+
+def test_launcher_is_declared_where_the_library_binds_it():
+    source = (kernels.CSRC_DIR / "epilogue.cu").read_text()
+    assert ('extern "C" int conv_epilogue_launch(void* y, const void* bias, const void* skip, '
+            'long long rows,') in source
+    argtypes, _ = kernels._SIGNATURES["conv_epilogue_launch"]
+    assert len(argtypes) == 7 and "epilogue.cu" in {p.name for p in kernels.sources()}

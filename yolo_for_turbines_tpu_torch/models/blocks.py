@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.epilogue_kernel import conv_epilogue
+
 BN_EPS = 1e-5  # torch BatchNorm2d default, needed for darknet-weight parity
 BN_MOMENTUM = 0.1  # torch default: new = (1 - m) * old + m * batch
 
@@ -28,6 +30,9 @@ def mish(x):
 
 
 ACTIVATIONS = {"leaky_relu": leaky_relu, "mish": mish}
+# the activation name kernel K5 (``conv_epilogue``) takes for each function
+# a folded conv may be given; None is a head's last 1x1
+EPILOGUE_ACTIVATIONS = {None: "identity", leaky_relu: "leaky_relu", mish: "mish"}
 
 
 def get_activation(name: str):
@@ -94,9 +99,10 @@ class ConvBlock(nn.Module):
             if not bn:
                 self.conv.bias.copy_((torch.rand(out_ch, generator=generator) * 2 - 1) * bound)
 
-    def forward(self, x, act=None, rows=None):
+    def forward(self, x, act=None, rows=None, skip=None):
         """``rows`` (``parallel/spatial.py::Rows``) runs the conv with its
-        halo and the BN with the moments of the mesh's batch."""
+        halo and the BN with the moments of the mesh's batch; ``skip`` is
+        added after the activation (a residual block's input)."""
         if rows is None:
             y = self.conv(x)
             if self.bn is not None:
@@ -106,7 +112,8 @@ class ConvBlock(nn.Module):
             y = rows.conv(x, c.weight, c.bias, c.stride[0], c.padding[0])
             if self.bn is not None:
                 y = rows.bn(self.bn, y)
-        return act(y) if act is not None else y
+        y = act(y) if act is not None else y
+        return y if skip is None else skip + y
 
     def folded(self) -> Dict:
         """{"w": OIHW, "b"} with eval-mode BN folded in (``fold_conv_bn``)."""
@@ -127,8 +134,26 @@ def fold_conv_bn(params: Dict, stats: Dict) -> Dict:
     return {"w": w, "b": b}
 
 
+def epilogue_wins(x, act, skip=None) -> bool:
+    """Whether a folded conv on input ``x`` runs its bias, activation
+    ``act`` and residual add of ``skip`` as kernel K5 after a bias-free
+    cuDNN conv: ``x`` (and ``skip``) bf16 on CUDA and stored channels_last,
+    which is what the kernel takes and what a bf16 predictor on the card
+    holds, and ``act`` one the kernel knows. Any other input (CPU, float32,
+    NCHW memory) keeps the conv's bias, the activation and ``skip + y`` as
+    separate ops."""
+    return (act in EPILOGUE_ACTIVATIONS and _epilogue_takes(x)
+            and (skip is None or _epilogue_takes(skip)))
+
+
+def _epilogue_takes(t) -> bool:
+    return t.is_cuda and t.dtype == torch.bfloat16 and t.is_contiguous(
+        memory_format=torch.channels_last)
+
+
 class FoldedConv(nn.Module):
-    """Conv + bias (+ activation) over BN-folded OIHW weights."""
+    """Conv + bias (+ activation) (+ a residual) over BN-folded OIHW
+    weights."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
         super().__init__()
@@ -138,12 +163,18 @@ class FoldedConv(nn.Module):
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
 
-    def forward(self, x, act=None, rows=None):
+    def forward(self, x, act=None, rows=None, skip=None):
+        """``skip + act(conv(x) + bias)``; ``rows`` as ``ConvBlock``'s (SP
+        keeps the separate ops)."""
+        if rows is None and epilogue_wins(x, act, skip):
+            y = conv2d(x, self.weight, self.stride, self.padding)
+            return conv_epilogue(y, self.bias, EPILOGUE_ACTIVATIONS[act], skip)
         if rows is None:
             y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
         else:
             y = rows.conv(x, self.weight, self.bias, self.stride, self.padding)
-        return act(y) if act is not None else y
+        y = act(y) if act is not None else y
+        return y if skip is None else skip + y
 
 
 def upsample2x(x):

@@ -89,7 +89,7 @@ def _forward(stage, x, act, rows=None):
     shortcut = stage.split1(x, act, rows)
     y = stage.split2(x, act, rows)
     for blk in stage.blocks:
-        y = y + blk["conv2"](blk["conv1"](y, act, rows), act, rows)
+        y = blk["conv2"](blk["conv1"](y, act, rows), act, rows, skip=y)
     y = stage.transition(y, act, rows)
     return stage.fuse(torch.cat([y, shortcut], dim=1), act, rows)
 

@@ -473,8 +473,7 @@ class ResidualStage(nn.Module):
             return fused.permute(0, 3, 1, 2)
         for blk in self.blocks:
             y = blk["conv1"](x, act, rows)
-            y = blk["conv2"](y, act, rows)
-            x = x + y if self.entry.use_residual else y
+            x = blk["conv2"](y, act, rows, skip=x if self.entry.use_residual else None)
         return x
 
 

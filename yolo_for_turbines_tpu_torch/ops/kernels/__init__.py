@@ -53,6 +53,8 @@ _SIGNATURES = {
     "resblock_int8_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
     # boxes, k, center, out, stream
     "pairwise_iou_launch": ([_P, _I, _I, _P, _P], _I),
+    # y, bias, skip, rows, C, act, stream
+    "conv_epilogue_launch": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
 }
 
 

@@ -1,0 +1,105 @@
+"""A folded conv's bias, activation and residual add in one pass (kernel K5,
+``csrc/epilogue.cu``), and its plain torch version.
+
+K5 replaces no TPU kernel: XLA fused these ops into its convolution. On the
+card cuDNN computes the convolution (``F.conv2d`` without its bias) and K5
+then rewrites the output ``y`` in place:
+
+    y = bf16(skip + act(float(y) + float(bias)))    # skip optional
+
+with ``act`` identity, leaky_relu(0.1) or mish, in f32 and rounded once,
+where the composition it replaces (the conv's bias add, the activation,
+``x + y``) read and wrote the activation three times and rounded it each
+time. ``y`` and ``skip`` are (B, C, H, W) tensors stored channels_last (NHWC
+memory), as the folded model keeps its activations; ``bias`` is (C,).
+
+``conv_epilogue`` dispatches on the tensor's device: a CPU tensor takes
+``conv_epilogue_reference``; a CUDA tensor launches the kernel (bf16 only)
+or raises. ``models/blocks.py::FoldedConv`` sends it what it takes and keeps
+the composition for every other input.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import check, load_library, stream_handle
+
+# kernel launches since the last reset (read by chip_smoke.py)
+launches = 0
+
+# the activation codes of csrc/epilogue.cu
+ACT_CODES = {"identity": 0, "leaky_relu": 1, "mish": 2}
+_ACTIVATIONS = {
+    "identity": lambda t: t,
+    "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
+    "mish": F.mish,
+}
+
+
+def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, activation: str = "identity",
+                            skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch version: ``skip + act(y + bias)`` in f32, rounded once to
+    ``y.dtype``; a new tensor."""
+    t = _ACTIVATIONS[activation](y.float() + bias.float()[:, None, None])
+    if skip is not None:
+        t = t + skip.float()
+    return t.to(y.dtype)
+
+
+def _check(y, bias, activation, skip) -> None:
+    if activation not in ACT_CODES:
+        raise ValueError(f"conv_epilogue: unsupported activation {activation!r}")
+    if y.dim() != 4 or not y.is_floating_point():
+        raise ValueError(f"conv_epilogue: y must be a float (B, C, H, W) tensor, got "
+                         f"{y.dtype} {tuple(y.shape)}")
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv_epilogue: y must be stored channels_last (NHWC memory)")
+    if bias.shape != (y.shape[1],) or bias.dtype != y.dtype or bias.device != y.device:
+        raise ValueError(f"conv_epilogue: bias must be {y.dtype} ({y.shape[1]},) on {y.device}, "
+                         f"got {bias.dtype} {tuple(bias.shape)} on {bias.device}")
+    if not bias.is_contiguous():
+        raise ValueError("conv_epilogue: bias must be contiguous")
+    if skip is None:
+        return
+    if skip.shape != y.shape or skip.dtype != y.dtype or skip.device != y.device:
+        raise ValueError(f"conv_epilogue: skip must be {y.dtype} {tuple(y.shape)} on {y.device}, "
+                         f"got {skip.dtype} {tuple(skip.shape)} on {skip.device}")
+    if not skip.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv_epilogue: skip must be stored channels_last (NHWC memory)")
+    nbytes = y.numel() * y.element_size()
+    if abs(skip.data_ptr() - y.data_ptr()) < nbytes:
+        raise ValueError("conv_epilogue: skip overlaps y, which is written in place")
+
+
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identity",
+                  skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write ``skip + act(y + bias)`` into ``y`` and return ``y``.
+
+    Args:
+        y: (B, C, H, W) conv output stored channels_last; bf16 on CUDA.
+        bias: (C,) in ``y``'s dtype.
+        activation: "identity", "leaky_relu" (slope 0.1) or "mish".
+        skip: None, or a tensor like ``y`` (a residual block's input) that
+            does not overlap it.
+    """
+    global launches
+    _check(y, bias, activation, skip)
+    if not y.is_cuda and y.device.type == "cpu":
+        return y.copy_(conv_epilogue_reference(y, bias, activation, skip))
+    if y.dtype != torch.bfloat16:
+        raise ValueError(f"conv_epilogue: the kernel takes bf16, got {y.dtype}")
+    if not y.is_cuda:
+        raise ValueError(f"conv_epilogue: unsupported device {y.device}")
+    if y.numel() == 0:
+        return y
+    b, c, h, w = y.shape
+    rc = load_library().conv_epilogue_launch(
+        y.data_ptr(), bias.data_ptr(), None if skip is None else skip.data_ptr(),
+        b * h * w, c, ACT_CODES[activation], stream_handle(y.device))
+    check(rc, "conv_epilogue_launch")
+    launches += 1
+    return y
