@@ -46,6 +46,14 @@ TINY_ANCHORS = (
     ((10 / 416, 14 / 416), (23 / 416, 27 / 416), (37 / 416, 58 / 416)),
 )
 
+# yolov4.cfg's anchors (pixels / 608), finest scale (stride 8) first: the
+# order of YOLOv4's heads
+YOLOV4_ANCHORS = (
+    ((12 / 608, 16 / 608), (19 / 608, 36 / 608), (40 / 608, 28 / 608)),
+    ((36 / 608, 75 / 608), (76 / 608, 55 / 608), (72 / 608, 146 / 608)),
+    ((142 / 608, 110 / 608), (192 / 608, 243 / 608), (459 / 608, 401 / 608)),
+)
+
 STRIDES = (32, 16, 8)
 
 TURBINE_LABELS = ("dirt", "damage")
@@ -78,8 +86,8 @@ def grid_sizes_for(image_size: int, strides: Sequence[int] = STRIDES) -> tuple:
 def strides_for(backbone: str) -> tuple:
     """Output strides of a backbone's heads: two scales for ``yolov3_tiny``,
     three for the others (as the JAX package's ``load_predictor`` sets
-    them)."""
-    return (32, 16) if backbone == "yolov3_tiny" else STRIDES
+    them), finest first for ``yolov4``."""
+    return {"yolov3_tiny": (32, 16), "yolov4": (8, 16, 32)}.get(backbone, STRIDES)
 
 
 def anchors_array(anchors=ANCHORS) -> np.ndarray:
@@ -138,7 +146,7 @@ class ModelConfig:
     num_classes: int = NUM_COCO_CLASSES
     in_channels: int = 3
     activation: str = "leaky_relu"  # or "mish"
-    backbone: str = "darknet53"  # or "cspdarknet53" or "yolov3_tiny"
+    backbone: str = "darknet53"  # or "cspdarknet53", "yolov3_tiny" or "yolov4"
     anchors_per_scale: int = 3
     # Output stride per detection scale, coarsest first.
     strides: tuple = (32, 16, 8)

@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
 import torch.nn as nn
 
-from .blocks import ConvBlock, FoldedConv
+from .blocks import ConvBlock, FoldedConv, cat_channels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +90,7 @@ def _forward(stage, x, act, rows=None):
     for blk in stage.blocks:
         y = blk["conv2"](blk["conv1"](y, act, rows), act, rows, skip=y)
     y = stage.transition(y, act, rows)
-    return stage.fuse(torch.cat([y, shortcut], dim=1), act, rows)
+    return stage.fuse(cat_channels([y, shortcut]), act, rows)
 
 
 class TrainableCSPStage(nn.Module):

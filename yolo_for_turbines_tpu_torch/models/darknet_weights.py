@@ -47,6 +47,7 @@ from .yolov3 import (
     TrainableHead,
     TrainableResidualStage,
     YOLOv3,
+    has_yolov4_entries,
 )
 from .blocks import ConvBlock
 
@@ -248,6 +249,9 @@ def load_darknet_into(weights_path: str, model: YOLOv3,
     with ``freeze`` every parameter of a loaded layer, else none."""
     from .convert import load_trainable, trainable_to_numpy
 
+    if has_yolov4_entries(model.plan):
+        raise ValueError("the darknet reader does not take a YOLOv4 plan "
+                         "(yolov4.weights' layer order is not ported)")
     params, stats = trainable_to_numpy(model)
     params, stats, mask, consumed = load_darknet_weights(
         weights_path, model.plan, params, stats, freeze=freeze)

@@ -1,5 +1,5 @@
-"""YOLOv3 (Darknet-53, CSPDarknet-53 or tiny backbone + heads) in PyTorch,
-trainable and folded.
+"""YOLOv3 (Darknet-53, CSPDarknet-53 or tiny backbone + heads) and YOLOv4
+in PyTorch, trainable and folded.
 
 Counterpart of ``yolo_for_turbines_tpu/models/yolov3.py``: the same layer
 DSL and static plan, and two ``nn.Module``s over it:
@@ -14,18 +14,27 @@ DSL and static plan, and two ``nn.Module``s over it:
   layer), which serves.
 
 Routes are saved at the 8-block residual and CSP stages and at a
-``PlanRoute`` (tiny), and popped LIFO after each upsample; a concat is
-``[upsampled, route]``; a head is a branch and the trunk continues from the
-head's input. The backbone follows ``cfg.backbone`` (``cspdarknet53``:
-``models/cspdarknet.py``; ``yolov3_tiny``: ``models/yolov3_tiny.py``)
-unless ``cfg.layer_config`` is set.
+``PlanRoute`` (tiny), and popped LIFO after each upsample; such a concat is
+``[upsampled, route]``. A YOLOv4 plan (``YOLOV4_LAYER_CONFIG``, the
+``yolov4`` backbone) also saves routes by name (``PlanSave``) and reads
+them by name: a lateral 1x1 on a saved route concatenated with the
+upsampled trunk (``PlanLateral``, ``[lateral, upsampled]``), PANet's
+bottom-up join (``PlanJoin``, ``[trunk, route]``) and SPP's pools
+(``PlanSPP``); ``PlanActivation`` switches the activation of the convs and
+heads after it. A head is a branch and the trunk continues from the head's
+input; heads come out in the plan's order, which is its ``strides``' order
+(coarsest first for YOLOv3, finest first for YOLOv4). The backbone follows
+``cfg.backbone`` (``cspdarknet53``: ``models/cspdarknet.py``;
+``yolov3_tiny``: ``models/yolov3_tiny.py``; ``yolov4``) unless
+``cfg.layer_config`` is set.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import ClassVar, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +48,8 @@ from ..ops.kernels.resblock_kernel import (
     stack_block_params,
     stage_wins,
 )
-from .blocks import ConvBlock, FoldedConv, get_activation, maxpool2d, upsample2x
+from ..utils.profiling import span
+from .blocks import ConvBlock, FoldedConv, cat_channels, get_activation, maxpool2d, upsample2x
 from .cspdarknet import (
     CSP_LAYER_CONFIG,
     CSPStage,
@@ -78,6 +88,71 @@ LAYER_CONFIG = (
     "S",
 )
 
+# YOLOv4 (Bochkovskiy, Wang and Liao, arXiv:2004.10934), the layers of
+# darknet's cfg/yolov4.cfg: the CSPDarknet-53 backbone under mish (its CSP
+# stages are CSP_LAYER_CONFIG's), then leaky: three convs, SPP, three convs
+# (P5), the top-down path (a lateral 1x1 on C4, then on C3, each
+# concatenated with the upsampled trunk: P4, N3) and PANet's bottom-up path
+# (a stride-2 conv joined with P4, then with P5); heads finest first, each
+# with its grid-sensitive ``scale_x_y``. ``strides=(8, 16, 32)``,
+# ``config.YOLOV4_ANCHORS``.
+YOLOV4_LAYER_CONFIG = (
+    (32, 3, 1),
+    (64, 3, 2),
+    ("C", 1),
+    (128, 3, 2),
+    ("C", 2),
+    (256, 3, 2),
+    ("C", 8),
+    ("save", "c3"),
+    (512, 3, 2),
+    ("C", 8),
+    ("save", "c4"),
+    (1024, 3, 2),
+    ("C", 4),  # C5
+    ("act", "leaky_relu"),
+    (512, 1, 1),
+    (1024, 3, 1),
+    (512, 1, 1),
+    ("spp", 5, 9, 13),
+    (512, 1, 1),
+    (1024, 3, 1),
+    (512, 1, 1),
+    ("save", "p5"),
+    (256, 1, 1),
+    ("lateral", "c4", 256),
+    (256, 1, 1),
+    (512, 3, 1),
+    (256, 1, 1),
+    (512, 3, 1),
+    (256, 1, 1),
+    ("save", "p4"),
+    (128, 1, 1),
+    ("lateral", "c3", 128),
+    (128, 1, 1),
+    (256, 3, 1),
+    (128, 1, 1),
+    (256, 3, 1),
+    (128, 1, 1),  # N3
+    ("head", 1.2),  # stride 8
+    (256, 3, 2),
+    ("join", "p4"),
+    (256, 1, 1),
+    (512, 3, 1),
+    (256, 1, 1),
+    (512, 3, 1),
+    (256, 1, 1),  # N4
+    ("head", 1.1),  # stride 16
+    (512, 3, 2),
+    ("join", "p5"),
+    (512, 1, 1),
+    (1024, 3, 1),
+    (512, 1, 1),
+    (1024, 3, 1),
+    (512, 1, 1),  # N5
+    ("head", 1.05),  # stride 32
+)
+
 
 # ---------------------------------------------------------------------------
 # Plan (static description of the layer sequence)
@@ -110,10 +185,22 @@ class PlanHead:
     num_classes: int
     anchors_per_scale: int = 3
     mid_ch: Optional[int] = None
+    # the decode's cell-offset scale, 1.0 for YOLOv3 (no field: the entry's
+    # fields are the JAX package's); PlanGridHead's is a field
+    scale_xy: ClassVar[float] = 1.0
 
     @property
     def mid(self) -> int:
         return self.mid_ch if self.mid_ch is not None else 2 * self.in_ch
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanGridHead(PlanHead):
+    """A YOLOv4 head: its decode is grid-sensitive, a cell's offset
+    ``sigmoid(t) * scale_xy - (scale_xy - 1) / 2`` (darknet's
+    ``scale_x_y``)."""
+
+    scale_xy: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +223,59 @@ class PlanUpsample:
     in_ch: int
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanActivation:
+    """The activation of every conv and head after it (YOLOv4: leaky after
+    the mish backbone)."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSPP:
+    """Spatial pyramid pooling: stride-1 SAME max pools, concatenated as
+    ``[pool(largest), ..., pool(smallest), x]``."""
+
+    in_ch: int
+    kernels: Tuple[int, ...] = (5, 9, 13)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSave:
+    """Save the trunk as the route ``name``."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanLateral:
+    """A 1x1 conv (+ activation) on the saved route ``route`` (``in_ch``
+    channels) to ``out_ch``, concatenated with the upsampled trunk:
+    ``[lateral, upsampled]``."""
+
+    route: str
+    in_ch: int
+    out_ch: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanJoin:
+    """Channel concat of the trunk with the saved route ``route``:
+    ``[trunk, route]`` (PANet's bottom-up path)."""
+
+    route: str
+
+
+# the entries without weights that only a YOLOv4 plan has
+YOLOV4_WALK_ENTRIES = (PlanActivation, PlanSPP, PlanSave, PlanJoin)
+
+
+def has_yolov4_entries(plan) -> bool:
+    """Whether ``plan`` has YOLOv4's entries, which neither int8 PTQ,
+    spatial partitioning nor the darknet reader take."""
+    return any(isinstance(e, (*YOLOV4_WALK_ENTRIES, PlanLateral, PlanGridHead)) for e in plan)
+
+
 Plan = Tuple
 
 
@@ -144,8 +284,16 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
 
     The DSL is ``cfg.layer_config`` when set, else ``layer_config`` when
     given, else the backbone's: ``CSP_LAYER_CONFIG`` for ``cspdarknet53``,
-    ``build_tiny_plan`` for ``yolov3_tiny`` and ``LAYER_CONFIG`` for any
-    other name, as ``YOLOv3.plan`` of the JAX package chooses."""
+    ``build_tiny_plan`` for ``yolov3_tiny``, ``YOLOV4_LAYER_CONFIG`` for
+    ``yolov4`` and ``LAYER_CONFIG`` for any other name, as ``YOLOv3.plan``
+    of the JAX package chooses (which has no ``yolov4``).
+
+    Entries: ``(out, k, stride)`` a conv; ``("B", n)`` a residual stage and
+    ``("C", n)`` a CSP stage (8-block stages save a LIFO route); ``"S"``
+    YOLOv3's five-conv set and head; ``"U"`` an upsample concatenated with
+    the last LIFO route. YOLOv4's: ``("act", name)``, ``("spp", *kernels)``,
+    ``("save", name)``, ``("lateral", route, out)``, ``("join", route)``
+    and ``("head", scale_xy)``, a head alone on the trunk."""
     if cfg.layer_config is not None:
         layer_config = cfg.layer_config
     elif layer_config is None:
@@ -153,21 +301,43 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
             from .yolov3_tiny import build_tiny_plan
 
             return build_tiny_plan(cfg)
-        layer_config = CSP_LAYER_CONFIG if cfg.backbone == "cspdarknet53" else LAYER_CONFIG
+        layer_config = {"cspdarknet53": CSP_LAYER_CONFIG,
+                        "yolov4": YOLOV4_LAYER_CONFIG}.get(cfg.backbone, LAYER_CONFIG)
     plan: List = []
     in_ch = cfg.in_channels
     first_csp = True
+    saved = {}  # channels of each named route
     for block in layer_config:
-        if isinstance(block, tuple) and block[0] == "B":
+        tag = block[0] if isinstance(block, tuple) else block
+        if tag == "B":
             n = block[1]
             plan.append(
                 PlanResidual(channels=in_ch, num_blocks=n, save_route=(n == 8))
             )
-        elif isinstance(block, tuple) and block[0] == "C":
+        elif tag == "C":
             n = block[1]
             plan.append(PlanCSP(channels=in_ch, num_blocks=n, save_route=(n == 8),
                                 first_stage=first_csp))
             first_csp = False
+        elif tag == "act":
+            get_activation(block[1])  # an unknown name raises here
+            plan.append(PlanActivation(block[1]))
+        elif tag == "spp":
+            plan.append(PlanSPP(in_ch, tuple(block[1:])))
+            in_ch *= len(block)
+        elif tag == "save":
+            plan.append(PlanSave(block[1]))
+            saved[block[1]] = in_ch
+        elif tag == "lateral":
+            _, route, out_ch = block
+            plan.append(PlanLateral(route, saved[route], out_ch))
+            in_ch += out_ch
+        elif tag == "join":
+            plan.append(PlanJoin(block[1]))
+            in_ch += saved[block[1]]
+        elif tag == "head":
+            plan.append(PlanGridHead(in_ch, cfg.num_classes, cfg.anchors_per_scale,
+                                     scale_xy=float(block[1])))
         elif isinstance(block, tuple):
             out_ch, k, s = block
             plan.append(PlanConv(in_ch, out_ch, kernel=k, stride=s))
@@ -254,8 +424,8 @@ class YOLOv3(nn.Module):
     """The trainable model: conv + BN + activation per layer.
 
     ``forward`` takes an NHWC image batch and returns one head per scale,
-    coarsest first, each ``(B, A, S, S, 5+C)`` float32: the counterpart of
-    ``apply(..., train=self.training)``. Train mode normalizes with the
+    in the order of ``strides``, each ``(B, A, S, S, 5+C)`` float32: the
+    counterpart of ``apply(..., train=self.training)``. Train mode normalizes with the
     batch statistics and updates the running ones; eval mode reads them.
     The module runs in its parameters' dtype; mixed precision is the
     caller's ``torch.autocast``. The JAX package's space-to-depth stem
@@ -279,11 +449,14 @@ class YOLOv3(nn.Module):
                 layers.append(TrainableCSPStage(entry, generator))
             elif isinstance(entry, PlanHead):
                 layers.append(TrainableHead(entry, generator))
-            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
+            elif isinstance(entry, PlanLateral):
+                layers.append(ConvBlock(entry.in_ch, entry.out_ch, 1, generator=generator))
+            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
                 layers.append(nn.Identity())
             else:
                 raise TypeError(f"unknown plan entry {entry!r}")
         self.layers = nn.ModuleList(layers)
+        self._parts = _parts(self.plan, layers)
 
     @property
     def strides(self) -> Tuple[int, ...]:
@@ -378,7 +551,9 @@ def init_plan(plan: Plan, generator: torch.Generator):
                 "conv1": _init_folded_conv(generator, entry.in_ch, entry.mid, 3),
                 "conv2": _init_folded_conv(generator, entry.mid, out_ch, 1, bn=False),
             })
-        elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
+        elif isinstance(entry, PlanLateral):
+            folded.append({"conv": _init_folded_conv(generator, entry.in_ch, entry.out_ch, 1)})
+        elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
             folded.append({})
         else:
             raise TypeError(f"unknown plan entry {entry!r}")
@@ -492,11 +667,13 @@ class FoldedYOLOv3(nn.Module):
     """Folded-BN inference forward with raw heads.
 
     ``forward`` takes an NHWC image batch in [0, 1] and returns one raw head
-    per scale, coarsest first, each NHWC ``(B, S, S, A*(5+C))`` in the
-    module's dtype (``apply_inference(..., raw_heads=True)``). Inside, the
-    trunk runs NCHW; with ``memory_format=torch.channels_last`` weights the
-    activations are NHWC in memory, which is what the fused residual kernel
-    takes.
+    per scale, in the order of ``strides``, each NHWC ``(B, S, S,
+    A*(5+C))`` in the module's dtype (``apply_inference(...,
+    raw_heads=True)``). Inside, the trunk runs NCHW; with
+    ``memory_format=torch.channels_last`` weights the activations are NHWC
+    in memory, which is what the fused residual kernel and K5 take (the
+    concats, pools and upsamples keep it). On a YOLOv4 plan the forward
+    runs in three spans (``_parts``).
     """
 
     def __init__(self, cfg: ModelConfig, plan: Optional[Plan] = None):
@@ -513,11 +690,14 @@ class FoldedYOLOv3(nn.Module):
                 layers.append(CSPStage(entry))
             elif isinstance(entry, PlanHead):
                 layers.append(Head(entry))
-            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute)):
+            elif isinstance(entry, PlanLateral):
+                layers.append(FoldedConv(entry.in_ch, entry.out_ch, 1))
+            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
                 layers.append(nn.Identity())
             else:
                 raise TypeError(f"unknown plan entry {entry!r}")
         self.layers = nn.ModuleList(layers)
+        self._parts = _parts(self.plan, layers)
         # cfg.s2d_stem is a train-mode TPU layout and is ignored here
         self.fuse_resblocks = cfg.fuse_resblocks
 
@@ -549,47 +729,86 @@ class FoldedYOLOv3(nn.Module):
                      lambda entry, y: y.permute(0, 2, 3, 1))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _parts(plan, layers) -> tuple:
+    """The walk's ``(span name, ((entry, layer), ...))`` parts: a plan with
+    SPP in three, ``forward.backbone`` (everything before SPP: the stem,
+    the stages to C5 and the three convs that feed SPP), ``forward.spp``
+    (the pools and their concat) and ``forward.neck`` (the rest, the heads
+    included); any other plan in one part that opens no span."""
+    pairs = tuple(zip(plan, layers))
+    at = next((i for i, e in enumerate(plan) if isinstance(e, PlanSPP)), None)
+    if at is None:
+        return ((None, pairs),)
+    return (("forward.backbone", pairs[:at]), ("forward.spp", pairs[at : at + 1]),
+            ("forward.neck", pairs[at + 1 :]))
+
+
 def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     """The plan's walk, shared by both modules: NHWC ``x`` in, one head per
-    scale out (``head(entry, NCHW y)``); ``stage(layer, x, rows)`` runs a
-    residual or CSP stage. Routes are saved at the 8-block stages and at a
-    ``PlanRoute`` and popped LIFO after each upsample; a concat is
-    ``[upsampled, route]``; a head is a branch.
+    scale out in the plan's order (``head(entry, NCHW y)``); ``stage(layer,
+    x, rows)`` runs a residual or CSP stage. Routes are saved at the
+    8-block stages and at a ``PlanRoute`` and popped LIFO after each
+    upsample (a concat ``[upsampled, route]``); a ``PlanSave`` saves one by
+    name, which a ``PlanLateral`` or ``PlanJoin`` reads; a head is a
+    branch. Each part of ``model._parts`` runs inside its span (a YOLOv4
+    plan's three; none for any other plan). Every channel concat is
+    counted in ``utils/profiling.py::concat_bytes``.
 
     With a ``layout``, ``rows`` says how each activation lies on the mesh;
     ``layout.constrain`` re-lays it where the height changes (the JAX
-    ``constrain`` points) and the heads are gathered."""
+    ``constrain`` points) and the heads are gathered. A YOLOv4 plan takes
+    no layout."""
     x = x.to(next(model.parameters()).dtype).permute(0, 3, 1, 2)
     rows = None
     if layout is not None:
+        if has_yolov4_entries(model.plan):
+            raise ValueError("spatial partitioning does not take a YOLOv4 plan "
+                             "(SPP, named routes)")
         x, rows = layout.enter(x)
     preds: List[torch.Tensor] = []
     routes: List[torch.Tensor] = []
-    for entry, layer in zip(model.plan, model.layers):
-        if isinstance(entry, (PlanConv, PlanMaxPool)):
-            if rows is not None:
-                x, rows = layout.fit(x, rows, entry.stride)
-            if isinstance(entry, PlanConv):
-                x = layer(x, act, rows)
-            elif rows is None:
-                x = maxpool2d(x, entry.kernel, entry.stride)
-            else:
-                x = rows.pool(x, entry.kernel, entry.stride)
-            if rows is not None:
-                x, rows = layout.constrain(x, rows)
-        elif isinstance(entry, (PlanResidual, PlanCSP)):
-            x = stage(layer, x, rows)
-            if entry.save_route:
-                routes.append(x)
-        elif isinstance(entry, PlanHead):
-            y = layer(x, act, rows)
-            preds.append(head(entry, y if rows is None else layout.gather(y, rows)))
-        elif isinstance(entry, PlanRoute):
-            routes.append(x)
-        elif isinstance(entry, PlanUpsample):
-            x = upsample2x(x)
-            if rows is not None:
-                # the route was laid out at this height by the same rule
-                x, rows = layout.constrain(x, rows)
-            x = torch.cat([x, routes.pop().to(x.dtype)], dim=1)
+    named = {}
+    for name, part in model._parts:
+        with _NO_SPAN if name is None else span(name):
+            for entry, layer in part:
+                if isinstance(entry, (PlanConv, PlanMaxPool)):
+                    if rows is not None:
+                        x, rows = layout.fit(x, rows, entry.stride)
+                    if isinstance(entry, PlanConv):
+                        x = layer(x, act, rows)
+                    elif rows is None:
+                        x = maxpool2d(x, entry.kernel, entry.stride)
+                    else:
+                        x = rows.pool(x, entry.kernel, entry.stride)
+                    if rows is not None:
+                        x, rows = layout.constrain(x, rows)
+                elif isinstance(entry, (PlanResidual, PlanCSP)):
+                    x = stage(layer, x, rows)
+                    if entry.save_route:
+                        routes.append(x)
+                elif isinstance(entry, PlanHead):
+                    y = layer(x, act, rows)
+                    preds.append(head(entry, y if rows is None else layout.gather(y, rows)))
+                elif isinstance(entry, PlanRoute):
+                    routes.append(x)
+                elif isinstance(entry, PlanUpsample):
+                    x = upsample2x(x)
+                    if rows is not None:
+                        # the route was laid out at this height by the same rule
+                        x, rows = layout.constrain(x, rows)
+                    x = cat_channels([x, routes.pop().to(x.dtype)])
+                elif isinstance(entry, PlanSave):
+                    named[entry.name] = x
+                elif isinstance(entry, PlanActivation):
+                    act = get_activation(entry.name)
+                elif isinstance(entry, PlanSPP):
+                    x = cat_channels([maxpool2d(x, k, 1) for k in reversed(entry.kernels)]
+                                     + [x])
+                elif isinstance(entry, PlanLateral):
+                    x = cat_channels([layer(named[entry.route], act), upsample2x(x)])
+                elif isinstance(entry, PlanJoin):
+                    x = cat_channels([x, named[entry.route]])
     return preds

@@ -9,7 +9,10 @@ grid size (cell units).
   with ``is_pred=False`` the encoded target grids ``(B, A, S, S, 6)``;
 - ``decode_raw_scale`` / ``decode_raw_all`` read the folded model's raw NHWC
   heads ``(B, S, S, A*(5+C))``, cells-major (the JAX ``decode_raw_scale``
-  order): box math in f32, the class argmax in the head's dtype.
+  order): box math in f32, the class argmax in the head's dtype. A scale's
+  ``scale_xy`` (YOLOv4's grid-sensitive decode, darknet's ``scale_x_y``)
+  stretches the cell offset: ``sigmoid(t) * scale_xy - (scale_xy - 1) / 2``;
+  at 1.0 (YOLOv3) no op is added.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def decode_all_scales(predictions, scaled_anchors, grid_sizes) -> torch.Tensor:
 
 
 def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
-                     num_classes: int) -> torch.Tensor:
+                     num_classes: int, scale_xy: float = 1.0) -> torch.Tensor:
     """Decode one scale's raw NHWC head output."""
     b, s = raw.shape[0], grid_size
     anchors = torch.as_tensor(anchors, device=raw.device).to(raw.dtype)
@@ -70,8 +73,12 @@ def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
 
     ar = torch.arange(s, dtype=torch.float32, device=raw.device)
     box = y[..., 0:5].float()
-    cx = (torch.sigmoid(box[..., 0:1]) + ar[None, None, :, None, None]) / s
-    cy = (torch.sigmoid(box[..., 1:2]) + ar[None, :, None, None, None]) / s
+    ox, oy = torch.sigmoid(box[..., 0:1]), torch.sigmoid(box[..., 1:2])
+    if scale_xy != 1.0:
+        shift = 0.5 * (scale_xy - 1.0)
+        ox, oy = ox * scale_xy - shift, oy * scale_xy - shift
+    cx = (ox + ar[None, None, :, None, None]) / s
+    cy = (oy + ar[None, :, None, None, None]) / s
     wh = torch.exp(box[..., 2:4]) * anchors.float().reshape(1, 1, 1, a, 2) / s
     scores = torch.sigmoid(box[..., 4:5])
     best_class = torch.argmax(y[..., 5:], dim=-1)[..., None].float()
@@ -79,10 +86,13 @@ def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
     return boxes.reshape(b, s * s * a, 6)
 
 
-def decode_raw_all(raw_preds, scaled_anchors, grid_sizes, num_classes: int):
-    """Raw-head decode over all scales -> (B, sum(S*S*A), 6)."""
+def decode_raw_all(raw_preds, scaled_anchors, grid_sizes, num_classes: int,
+                   scale_xy=None):
+    """Raw-head decode over all scales -> (B, sum(S*S*A), 6); ``scale_xy``
+    one factor per scale, or None for 1.0 at every scale."""
+    scale_xy = scale_xy or (1.0,) * len(raw_preds)
     parts = [
-        decode_raw_scale(r, scaled_anchors[i], grid_sizes[i], num_classes)
+        decode_raw_scale(r, scaled_anchors[i], grid_sizes[i], num_classes, scale_xy[i])
         for i, r in enumerate(raw_preds)
     ]
     return torch.cat(parts, dim=1)

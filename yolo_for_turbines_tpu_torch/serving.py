@@ -294,7 +294,8 @@ class _ServeModule(torch.nn.Module):
             raw = apply_inference_int8(model.plan, params, x, activation=model.cfg.activation,
                                        raw_heads=True, compute_dtype=pred.compute_dtype,
                                        portable=True)
-        boxes = decode_raw_all(raw, scaled_anchors, grid_sizes, model.cfg.num_classes)
+        boxes = decode_raw_all(raw, scaled_anchors, grid_sizes, model.cfg.num_classes,
+                               pred.scale_xy)
         return batched_nms(boxes, iou_threshold=pred.nms_iou_threshold,
                            obj_threshold=pred.conf_threshold, max_boxes=pred.max_boxes,
                            portable=True)

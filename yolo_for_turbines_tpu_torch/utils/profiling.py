@@ -14,6 +14,12 @@ profiler's timeline beside the kernels and copies it launches, and logs an
 entry on the host clock (``time.perf_counter``) in a bounded in-memory log
 that ``spans()`` reads. Nothing is written out on the way.
 
+``concat_bytes`` counts the bytes that the folded and the trainable
+forward's channel concats write (``models/blocks.py::cat_channels``: the
+walk's upsample, lateral, join and SPP concats and every CSP stage's), from
+the process's start, like the kernels' ``launches`` counters: one integer
+add per concat, with or without a profiler.
+
 The JAX package's ``StepTimer`` has no counterpart, and its
 ``enable_compilation_cache`` none either: the port compiles nothing at run
 time but its CUDA kernels, whose build ``ops/kernels`` caches in
@@ -37,6 +43,7 @@ _log: collections.deque = collections.deque(maxlen=LOG_ENTRIES)
 _ids = itertools.count(1)
 _local = threading.local()
 _OFF = contextlib.nullcontext()
+concat_bytes = 0
 
 
 @contextlib.contextmanager
