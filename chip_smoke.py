@@ -44,6 +44,15 @@ Phases, one JSON line each:
           52x52x256 with a skip and 13x13x255 (each launch on a tensor
           outside L2) beside their byte bounds, the plain version and the
           aten composition it replaced;
+  k6      an int8 conv's epilogue (dequant, bias, activation, residual add
+          and requant in one pass, i32 in, s8 out) against the aten
+          composition it replaced at every width the models give it (B = 2;
+          leaky and mish; with and without a residual and a second branch;
+          sizes that leave a scalar tail; views misaligned by one element):
+          codes equal bit for bit; CUDA-event times at B = 128 of
+          416x416x32, 208x208x64 with a residual, 52x52x256 and 13x13x1024
+          beside their byte bounds and the composition; alone, with the env
+          and build lines: python3 -c "import chip_smoke; chip_smoke.k6_alone()";
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K5 exactly 59 times per predict_batch at B = 8 and 128;
@@ -56,7 +65,8 @@ Phases, one JSON line each:
           must agree with the f32 CPU forward;
   main_int8  the same model quantized (int8 PTQ, calibrated on 8 seeded
           images) and served through the same entry points: K1 and K4 must
-          launch (K5 never), outputs must be finite and well shaped, and against the
+          launch (K5 never), K6 exactly 53 times per predict_batch at B = 8
+          and 128, outputs must be finite and well shaped, and against the
           port's int8 CPU forward of the same qparams the s8 trunk codes
           each head reads must agree and the raw heads must agree (cosine);
           a predictor built for 608px, quantized the same way and fed the
@@ -273,6 +283,18 @@ K5_TIMED = ((416, 32, "leaky_relu", False), (208, 64, "leaky_relu", False),
 K5_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
               (13, 13, 1024), (13, 13, 255), (5, 7, 255), (3, 5, 21), (2, 3, 3), (3, 3, 1),
               (2, 2, 2056), (3, 1, 1023))
+# K6 launches per int8 Darknet-53 predict_batch at 416px (any B): every int8
+# conv outside K4's 26x26x512 stage and the heads (bf16)
+K6_PER_CALL = 53
+# K6's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, residual) of
+# the stem conv, a 208x208 residual block's 3x3 (the block's input added),
+# a 52x52 1x1 and the 13x13 neck's 3x3
+K6_TIMED = ((416, 32, False), (208, 64, True), (52, 256, False), (13, 1024, False))
+# K6 checked besides at B = 2: every width the models give it, widths whose
+# channel period passes a block's 256 threads, and sizes that leave a scalar
+# tail (B * H * W * C % 16 != 0)
+K6_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
+              (13, 13, 1024), (3, 5, 48), (2, 3, 3), (3, 1, 1023), (2, 2, 2056))
 # int8 card forward against the port's int8 CPU forward from the same
 # qparams. The trunk runs the same integer products and the same f32
 # epilogue ops in the same order on both (K4 equals its plain version), so
@@ -859,6 +881,126 @@ def phase_k5(dev):
             "library_ms": None, "timed": rows, "least_share_of_bound": worst["share_of_bound"]}
 
 
+def k6_inputs(b, h, w, c, gen, dev, residual, branch):
+    """An int8 conv's i32 output and epilogue operands in the ranges the
+    int8 path gives them (y32 * d up to about 13, so codes reach the clamp)."""
+    shape = (b, h, w, c)
+
+    def i32():
+        return torch.randint(-(1 << 17), 1 << 17, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    d = torch.rand(c, generator=gen, device=dev) * 1e-4
+    bias = torch.randn(c, generator=gen, device=dev)
+    s_out = torch.tensor(0.05, device=dev)
+    res = (torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8),
+           torch.tensor(0.03, device=dev)) if residual else None
+    extra = (i32(), torch.rand(c, generator=gen, device=dev) * 1e-4) if branch else None
+    return i32(), d, bias, s_out, res, extra
+
+
+def k6_check(ops, activation, what, out, q=None):
+    from yolo_for_turbines_tpu_torch.ops.kernels import int8_epilogue_kernel as ik
+
+    y32, d, bias, s_out, res, extra = ops
+    got = ik.int8_epilogue(y32, d, bias, s_out, activation, res, extra, out=q)
+    torch.cuda.synchronize()
+    want = ik.int8_epilogue_reference(y32, d, bias, s_out, activation, res, extra)
+    diff = (got.int() - want.int()).abs()
+    out["checks"].append({"case": what, "activation": activation, "residual": res is not None,
+                          "branch": extra is not None, "differing": int((diff != 0).sum()),
+                          "max_codes": int(diff.max())})
+    if out["checks"][-1]["differing"]:
+        emit(out)
+        raise AssertionError(f"K6 differs from the composition: {out['checks'][-1]}")
+
+
+def misaligned(t):
+    """``t``'s values in a view one element into a larger buffer."""
+    base = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return base[1:t.numel() + 1].view(t.shape).copy_(t)
+
+
+def phase_k6(dev):
+    """K6 against the aten composition it replaced, which runs the same f32
+    operations in the same order, at every width the models give it (both
+    activations, with and without a residual and a second branch; a
+    misaligned view takes the one-element variant), then its time at
+    Darknet-53's B = 128 shapes beside its byte bound and the composition."""
+    from yolo_for_turbines_tpu_torch.ops.kernels import int8_epilogue_kernel as ik
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out = {"phase": "k6", "kernel": "int8_epilogue", "checks": []}
+    ik.launches = 0
+    for h, w, c in K6_CHECKED:
+        for activation in ("leaky_relu", "mish"):
+            for residual in (False, True):
+                for branch in (False, True):
+                    ops = k6_inputs(2, h, w, c, gen, dev, residual, branch)
+                    k6_check(ops, activation, f"2x{h}x{w}x{c}", out)
+    # 16-byte vectors need every operand 16-byte aligned: views one element
+    # into their storage take the one-element variant
+    for which in ("y32", "residual", "branch", "out"):
+        y32, d, bias, s_out, (rq, rs), (yb, db) = k6_inputs(2, 13, 13, 64, gen, dev, True, True)
+        y32 = misaligned(y32) if which == "y32" else y32
+        rq = misaligned(rq) if which == "residual" else rq
+        yb = misaligned(yb) if which == "branch" else yb
+        q = torch.zeros(y32.shape, dtype=torch.int8, device=dev)
+        q = misaligned(q) if which == "out" else q
+        k6_check((y32, d, bias, s_out, (rq, rs), (yb, db)), "leaky_relu", f"{which} misaligned",
+                 out, q)
+    out["check_launches"] = ik.launches
+
+    rows = []
+    for hw, c, residual in K6_TIMED:
+        ops = k6_inputs(128, hw, hw, c, gen, dev, residual, False)
+        k6_check(ops, "leaky_relu", f"128x{hw}x{hw}x{c}", out)
+        y32, d, bias, s_out, res, _ = ops
+        nbytes = y32.numel() * (4 + 1 + (1 if residual else 0)) + 2 * c * 4
+        # copies enough to outrun the 50 MB L2: each launch finds its input
+        # cold, as after the int_mm that wrote it
+        copies = [y32.clone() for _ in range(max(1, -(-int(150e6) // (y32.numel() * 4))))]
+        q = torch.empty(y32.shape, dtype=torch.int8, device=dev)
+        turn = iter(range(1 << 30))
+
+        def kernel():
+            ik.int8_epilogue(copies[next(turn) % len(copies)], d, bias, s_out, "leaky_relu",
+                             res, out=q)
+
+        def comp():
+            ik.int8_epilogue_reference(copies[next(turn) % len(copies)], d, bias, s_out,
+                                       "leaky_relu", res)
+
+        iters = max(10, min(200, int(2e9 // nbytes)))
+        ms, comp_ms = ab_ms(kernel, comp, iters=iters, plain_iters=max(3, iters // 10))
+        bound_ms, bound_by = bound_of(nbytes, 0.0, INT8_OPS)
+        name = f"{hw}x{hw}x{c}" + ("_residual" if residual else "")
+        row = {"shape": name, "B": 128, "activation": "leaky_relu", "ms": ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "gb_per_s": nbytes / ms / 1e6, "composition_ms": comp_ms,
+               "copies": len(copies)}
+        out[name] = row
+        rows.append(row)
+        del ops, y32, res, copies, q
+        torch.cuda.empty_cache()
+    emit(out)
+    worst = min(rows, key=lambda r: r["share_of_bound"])
+    return {"ms": rows[0]["ms"], "plain_ms": rows[0]["composition_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None, "timed": rows, "least_share_of_bound": worst["share_of_bound"]}
+
+
+def k6_alone() -> None:
+    """The env and build lines, then phase k6, on the first card."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    phase_k6(torch.device("cuda", 0))
+
+
 def full_model():
     from yolo_for_turbines_tpu_torch.config import ModelConfig
     from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
@@ -1017,6 +1159,7 @@ def phase_main_int8(dev, bf16_rates):
     from yolo_for_turbines_tpu_torch.models.quantize import apply_inference_int8
     from yolo_for_turbines_tpu_torch.ops.kernels import (
         epilogue_kernel,
+        int8_epilogue_kernel,
         iou_kernel,
         nms_kernel,
         resblock_int8_kernel,
@@ -1054,6 +1197,16 @@ def phase_main_int8(dev, bf16_rates):
         raise AssertionError(f"the int8 path did not run its kernels: {out['launches']}, "
                              f"bf16 stage launches {resblock_kernel.launches}, "
                              f"K5 launches {epilogue_kernel.launches}")
+    per_call = []
+    for b in (8, 128):
+        int8_epilogue_kernel.launches = 0
+        pred.predict_batch(batches[b])
+        per_call.append(int8_epilogue_kernel.launches)
+    out["int8_epilogue_launches_per_predict_batch"] = per_call
+    if per_call != [K6_PER_CALL, K6_PER_CALL]:
+        emit(out)
+        raise AssertionError(f"K6 launched {per_call} times per predict_batch at B = 8 and "
+                             f"128, not {K6_PER_CALL}")
 
     # one image through the int8 forward on the card and the port's int8
     # CPU forward from the same qparams (f32 heads): the s8 trunk codes
@@ -3010,6 +3163,7 @@ def main() -> int:
     k3 = phase_k3(dev, gen)
     k4 = phase_k4(dev, np.random.default_rng(SEED))
     k5 = phase_k5(dev)
+    k6 = phase_k6(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
@@ -3085,6 +3239,11 @@ def main() -> int:
          "launches_by_path": {"main_per_predict_batch": K5_PER_CALL,
                               "main_f32": launches_f32["conv_epilogue"]},
          **k5},
+        # replaces no TPU kernel: XLA fused the int8 epilogue into its conv
+        {"name": "int8_epilogue", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/epilogue.cu", "replaces": None,
+         "launches_by_path": {"main_int8_per_predict_batch": K6_PER_CALL},
+         **k6},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

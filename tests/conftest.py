@@ -19,6 +19,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the card with "
+        "-m cuda --noconftest")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -32,6 +32,9 @@
 // with _rn intrinsics so that nvcc contracts no multiply and add into an
 // FMA; leaky and identity equal it bit for bit; mish calls tanhf, log1pf
 // and expf, as torch's CUDA mish does.
+//
+// K6, further down, is the same pass for an int8 conv (models/quantize.py):
+// from the conv's i32 output to the next layer's s8 codes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,6 +201,221 @@ int launch_act(void* y, const void* bias, const void* skip, long long n, int c, 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ---------------------------------------------------------------------------
+// K6: an int8 conv's epilogue in one pass. From the conv's NHWC i32 output
+// y (rows = B*Ho*Wo, C channels) to new s8 codes q:
+//     q[r, c] = s8(clamp(rint((act(f32(y[r, c]) * d[c] [+ f32(yb[r, c]) * db[c]]
+//                                  + bias[c]) [+ f32(res[r, c]) * rs]) / s_out),
+//                        -127, 127))
+// where yb is the second branch of a conv that reads a concat as two int8
+// convs, res the s8 input of a residual block (its scale rs), d and db the
+// per-channel dequant scales and s_out the output scale (a device scalar,
+// read through its pointer: the caller never syncs).
+//
+// Replaces no TPU kernel: XLA fused the int8 conv's epilogue into its
+// int32 convolution. On the card torch._int_mm writes i32 and the epilogue
+// was 8 to 11 aten passes over an f32 copy (conversion, multiply, add,
+// activation, residual, divide, round, clamp, narrowing), about 61 bytes
+// per element. Bound on the H100: device-memory bytes, 5 per element (6
+// with a residual, 9 with a second branch); a few dozen operations per
+// element (leaky; mish more). Design as K5's: the grid is the card's
+// resident blocks, striding by a multiple of the channel period so each
+// thread keeps its lanes' d, bias (and db) in registers; a vector is 16
+// elements, four 16-byte i32 loads (and one 16-byte load of the residual
+// codes) and one 16-byte store of s8; kQUnroll vectors in flight per
+// thread; the last n % 16 elements in a scalar tail; a one-element variant
+// for pointers that are not 16-byte aligned.
+//
+// Exactness: the f32 operations of models/quantize.py's composition in its
+// order, each rounded once (_rn intrinsics: no FMA), the division a true
+// IEEE division as aten's by a 0-dim device tensor, rint for torch.round
+// (ties to even), the activations as in K5: the codes equal the
+// composition's bit for bit.
+
+constexpr int kQUnroll = 2;  // 16-element vectors in flight per thread
+
+__device__ __forceinline__ int lane4(const int4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// byte j of a 16-byte vector of s8 codes, sign-extended
+__device__ __forceinline__ int code_at(const int4& v, int j) {
+    return static_cast<int>(static_cast<unsigned>(lane4(v, j / 4)) << (24 - 8 * (j % 4))) >> 24;
+}
+
+// kVec consecutive elements of each operand, as loaded
+template <int kVec>
+struct QLanes;
+
+template <>
+struct QLanes<16> {
+    int4 y[4], yb[4], res;
+
+    template <bool kRes, bool kBranch>
+    __device__ __forceinline__ void load(const int* y_p, const int* yb_p, const int8_t* res_p,
+                                         long long e) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            y[k] = reinterpret_cast<const int4*>(y_p + e)[k];
+            if (kBranch) yb[k] = reinterpret_cast<const int4*>(yb_p + e)[k];
+        }
+        if (kRes) res = *reinterpret_cast<const int4*>(res_p + e);
+    }
+    __device__ __forceinline__ int y_at(int j) const { return lane4(y[j / 4], j % 4); }
+    __device__ __forceinline__ int yb_at(int j) const { return lane4(yb[j / 4], j % 4); }
+    __device__ __forceinline__ int res_at(int j) const { return code_at(res, j); }
+
+    // the 16 codes as one 16-byte store
+    static __device__ __forceinline__ void store(int8_t* q_p, long long e, const int (&q)[16]) {
+        unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            w[j / 4] |= (static_cast<unsigned>(q[j]) & 0xffu) << (8 * (j % 4));
+        }
+        *reinterpret_cast<int4*>(q_p + e) =
+            make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                      static_cast<int>(w[3]));
+    }
+};
+
+template <>
+struct QLanes<1> {
+    int y, yb, res;
+
+    template <bool kRes, bool kBranch>
+    __device__ __forceinline__ void load(const int* y_p, const int* yb_p, const int8_t* res_p,
+                                         long long e) {
+        y = y_p[e];
+        if (kBranch) yb = yb_p[e];
+        if (kRes) res = res_p[e];
+    }
+    __device__ __forceinline__ int y_at(int) const { return y; }
+    __device__ __forceinline__ int yb_at(int) const { return yb; }
+    __device__ __forceinline__ int res_at(int) const { return res; }
+    static __device__ __forceinline__ void store(int8_t* q_p, long long e, const int (&q)[1]) {
+        q_p[e] = static_cast<int8_t>(q[0]);
+    }
+};
+
+template <int kAct, bool kRes, bool kBranch>
+__device__ __forceinline__ int requant(int y, float d, int yb, float db, float b, int res,
+                                       float rs, float s_out) {
+    float t = __fmul_rn(__int2float_rn(y), d);
+    if (kBranch) t = __fadd_rn(t, __fmul_rn(__int2float_rn(yb), db));
+    t = activate<kAct>(__fadd_rn(t, b));
+    if (kRes) t = __fadd_rn(t, __fmul_rn(__int2float_rn(res), rs));
+    t = fminf(fmaxf(rintf(__fdiv_rn(t, s_out)), -127.f), 127.f);
+    return __float2int_rn(t);
+}
+
+// n elements; `stride` threads take part, a multiple of the channel period,
+// and thread t handles vectors t, t + stride, t + 2 * stride, ...
+template <int kVec, int kAct, bool kRes, bool kBranch>
+__global__ void __launch_bounds__(kThreads)
+int8_epilogue_kernel(const int* __restrict__ y, const int* __restrict__ yb,
+                     const int8_t* __restrict__ res, int8_t* __restrict__ q,
+                     const float* __restrict__ d, const float* __restrict__ db,
+                     const float* __restrict__ bias, const float* __restrict__ s_out_p,
+                     const float* __restrict__ rs_p, long long n, int c, long long stride,
+                     int period) {
+    const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+    if (tid >= stride) return;
+    const long long n_vec = n / kVec;
+    const float s_out = *s_out_p;
+    const float rs = kRes ? *rs_p : 0.f;
+
+    // this thread's lanes' channels, the same in every vector it touches
+    const int c0 = static_cast<int>((static_cast<long long>(kVec) * (tid % period)) % c);
+    float dv[kVec], dbv[kVec], bv[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+        const int ch = (c0 + j) % c;
+        dv[j] = d[ch];
+        bv[j] = bias[ch];
+        dbv[j] = kBranch ? db[ch] : 0.f;
+    }
+
+    for (long long base = tid; base < n_vec; base += kQUnroll * stride) {
+        QLanes<kVec> in[kQUnroll];
+#pragma unroll
+        for (int u = 0; u < kQUnroll; ++u) {
+            const long long v = base + u * stride;
+            if (v < n_vec) in[u].template load<kRes, kBranch>(y, yb, res, v * kVec);
+        }
+#pragma unroll
+        for (int u = 0; u < kQUnroll; ++u) {
+            const long long v = base + u * stride;
+            if (v >= n_vec) continue;
+            int out[kVec];
+#pragma unroll
+            for (int j = 0; j < kVec; ++j) {
+                out[j] = requant<kAct, kRes, kBranch>(
+                    in[u].y_at(j), dv[j], kBranch ? in[u].yb_at(j) : 0, dbv[j], bv[j],
+                    kRes ? in[u].res_at(j) : 0, rs, s_out);
+            }
+            QLanes<kVec>::store(q, v * kVec, out);
+        }
+    }
+    if (kVec > 1 && tid == 0) {  // the last n % kVec elements
+        for (long long e = n_vec * kVec; e < n; ++e) {
+            const int ch = static_cast<int>(e % c);
+            q[e] = static_cast<int8_t>(requant<kAct, kRes, kBranch>(
+                y[e], d[ch], kBranch ? yb[e] : 0, kBranch ? db[ch] : 0.f, bias[ch],
+                kRes ? res[e] : 0, rs, s_out));
+        }
+    }
+}
+
+struct Int8EpilogueArgs {
+    const void *y, *yb, *res;
+    void* q;
+    const void *d, *db, *bias, *s_out, *rs;
+    long long n;
+    int c;
+};
+
+template <int kVec, int kAct, bool kRes, bool kBranch>
+int launch_int8(const Int8EpilogueArgs& a, cudaStream_t s) {
+    static int cached[kMaxDevices] = {};
+    auto kernel = int8_epilogue_kernel<kVec, kAct, kRes, kBranch>;
+    const int resident = resident_blocks(kernel, cached);
+    if (resident <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const int period = a.c / gcd(a.c, kVec);  // vectors after which the channels repeat
+    const long long n_vec = a.n / kVec;
+    const long long per_block = static_cast<long long>(kThreads) * kQUnroll;
+    long long blocks = (n_vec + per_block - 1) / per_block;
+    if (blocks > resident) blocks = resident;
+    const long long at_least = (period + kThreads - 1) / kThreads;  // stride >= period
+    if (blocks < at_least) blocks = at_least;
+    if (blocks < 1) blocks = 1;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const long long stride = blocks * kThreads / period * period;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const int*>(a.y), static_cast<const int*>(a.yb),
+        static_cast<const int8_t*>(a.res), static_cast<int8_t*>(a.q),
+        static_cast<const float*>(a.d), static_cast<const float*>(a.db),
+        static_cast<const float*>(a.bias), static_cast<const float*>(a.s_out),
+        static_cast<const float*>(a.rs), a.n, a.c, stride, period);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int kVec, int kAct>
+int launch_int8_operands(const Int8EpilogueArgs& a, cudaStream_t s) {
+    if (a.res && a.yb) return launch_int8<kVec, kAct, true, true>(a, s);
+    if (a.res) return launch_int8<kVec, kAct, true, false>(a, s);
+    if (a.yb) return launch_int8<kVec, kAct, false, true>(a, s);
+    return launch_int8<kVec, kAct, false, false>(a, s);
+}
+
+template <int kVec>
+int launch_int8_act(const Int8EpilogueArgs& a, int act, cudaStream_t s) {
+    switch (act) {
+        case kLeaky: return launch_int8_operands<kVec, kLeaky>(a, s);
+        case kMish: return launch_int8_operands<kVec, kMish>(a, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
 // y (rows, C) bf16, written in place; bias (C,) bf16; skip (rows, C) bf16 or
@@ -213,4 +431,25 @@ extern "C" int conv_epilogue_launch(void* y, const void* bias, const void* skip,
     const bool vec = aligned16(y) && (skip == nullptr || aligned16(skip));
     return vec ? launch_act<8>(y, bias, skip, n, c, act, s)
                : launch_act<1>(y, bias, skip, n, c, act, s);
+}
+
+// K6. y (rows, C) i32; yb (rows, C) i32 or null (the second branch, with
+// db (C,) f32); res (rows, C) s8 or null (with rs, a device f32 scalar);
+// q (rows, C) s8, written, overlapping no input; d, bias (C,) f32; s_out a
+// device f32 scalar; act 1 leaky_relu(0.1), 2 mish. 16-element vectors when
+// y, yb, res and q are 16-byte aligned, one element at a time otherwise.
+// Returns cudaGetLastError().
+extern "C" int int8_epilogue_launch(const void* y, const void* yb, const void* res, void* q,
+                                    const void* d, const void* db, const void* bias,
+                                    const void* s_out, const void* rs, long long rows, int c,
+                                    int act, void* stream) {
+    if (rows < 0 || c <= 0 || (yb && !db) || (res && !rs)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Int8EpilogueArgs a{y, yb, res, q, d, db, bias, s_out, rs, rows * c, c};
+    if (a.n == 0) return static_cast<int>(cudaSuccess);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool vec = aligned16(y) && aligned16(q) && (yb == nullptr || aligned16(yb)) &&
+                     (res == nullptr || aligned16(res));
+    return vec ? launch_int8_act<16>(a, act, s) : launch_int8_act<1>(a, act, s);
 }

@@ -9,7 +9,8 @@ recipe and the same quantized tree:
   representative batch (``calibrate``);
 - compute: s8 x s8 -> i32 products (im2col + ``torch._int_mm``; exact like
   XLA's int32 convs), then an f32 epilogue of dequant, bias, activation,
-  residual add and requant in the JAX operation order;
+  residual add and requant in the JAX operation order (on CUDA in one pass,
+  kernel K6, ``ops/kernels/int8_epilogue_kernel.py``);
 - heads run in ``compute_dtype`` from the dequantized trunk;
 - a concat feeding a conv runs as two int8 convs on the split weights,
   dequant-summed with per-branch scales: an upsample concat followed by a
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.int8_epilogue_kernel import int8_epilogue, int8_epilogue_reference
 from ..ops.kernels.resblock_int8_kernel import (
     KERNEL_C,
     apply_residual_stage_int8_fused,
@@ -45,6 +47,7 @@ from ..ops.kernels.resblock_int8_kernel import (
     kmajor_weights,
     pack_int8_stage,
 )
+from ..utils.profiling import span
 from .blocks import full_f32, get_activation, maxpool2d
 from .convert import qparams_from_numpy
 from .cspdarknet import SINGLE_CONVS, PlanCSP
@@ -249,37 +252,32 @@ def _requant(y_f, s_out):
     return torch.round(y_f / s_out).clamp_(-127, 127).to(torch.int8)
 
 
-# in-place twins of the activations (the same kernels, one buffer fewer)
-_ACT_INPLACE = {
-    "leaky_relu": lambda t: F.leaky_relu_(t, 0.1),
-    "mish": lambda t: F.mish(t, inplace=True),
-}
+def _epilogue(y32, d, b, s_out, activation, residual=None, extra=None,
+              portable: bool = False):
+    """Dequant + bias + activation (+ residual add) + requant of an int8
+    conv's i32 output, in f32 in the JAX operation order, inside the span
+    ``int8.epilogue``; ``extra`` = (y32b, db) adds a second partial conv,
+    ``residual`` = (rq, rs) the block input. K6 on CUDA; the plain
+    composition on the CPU and when ``portable``, with the same codes."""
+    with span("int8.epilogue"):
+        if portable:
+            return int8_epilogue_reference(y32, d, b, s_out, activation, residual, extra)
+        # K6 reads whole rows: where C % 8 != 0, int_mm's output is a view
+        extra = None if extra is None else (extra[0].contiguous(), extra[1])
+        return int8_epilogue(y32.contiguous(), d, b, s_out, activation, residual, extra)
 
 
-def _epilogue(y32, d, b, s_out, activation, residual=None, extra=None):
-    """Dequant + bias + activation (+ residual add) + requant, in f32 in the
-    JAX operation order, in place on one f32 buffer; ``extra`` = (y32b, db)
-    adds a second partial conv, ``residual`` = (rq, rs) the block input."""
-    y = y32.float().mul_(d)
-    if extra is not None:
-        y.add_(extra[0].float().mul_(extra[1]))
-    y = _ACT_INPLACE[activation](y.add_(b))
-    if residual is not None:
-        rq, rs = residual
-        y.add_(rq.float().mul_(rs))
-    return y.div_(s_out).round_().clamp_(-127, 127).to(torch.int8)
-
-
-def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu", rows=None):
+def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu", rows=None,
+                         portable: bool = False):
     """A quantized residual stage layer by layer (the path of every stage
     the fused kernel is not routed to): per block an int8 1x1 and 3x3 conv,
     each with its f32 epilogue. ``blocks`` from :func:`pack_int8_blocks`."""
     for bq in blocks:
         t1 = _epilogue(_conv_i8(xq, bq["w1"], 1, 1, 0), bq["d1"], bq["b1"], bq["s1"],
-                       activation)
+                       activation, portable=portable)
         res = (xq, bq["rs"]) if bq["rs"] is not None else None
         xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1, rows), bq["d2"], bq["b2"], bq["s2"],
-                       activation, residual=res)
+                       activation, residual=res, portable=portable)
     return xq
 
 
@@ -330,15 +328,16 @@ def _pack_conv(p, kernel: int, stride: int, s_in, s_out, split=None) -> dict:
     return q
 
 
-def _run_conv(q, xq, activation: str, xb=None, rows=None):
+def _run_conv(q, xq, activation: str, xb=None, rows=None, portable: bool = False):
     """The conv of :func:`_pack_conv` on s8 codes: one int8 conv and its
     epilogue, or with ``xb`` (the second branch of a split conv) two int8
     convs dequant-summed in one epilogue."""
     geom = q["kernel"], q["stride"], q["pad"], rows
     if xb is None:
-        return _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"], activation)
+        return _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"], activation,
+                         portable=portable)
     return _epilogue(_conv_i8(xq, q["wa"], *geom), q["da"], q["b"], q["s_out"], activation,
-                     extra=(_conv_i8(xb, q["wb"], *geom), q["db"]))
+                     extra=(_conv_i8(xb, q["wb"], *geom), q["db"]), portable=portable)
 
 
 def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool = True) -> list:
@@ -452,9 +451,10 @@ def apply_inference_int8(
     per scale, coarsest first: raw NHWC heads in ``compute_dtype`` with
     ``raw_heads``, else (B, A, S, S, 5+C) f32. ``portable=True`` skips the
     fused-stage router, which otherwise decides on this call's shapes, and
-    runs no kernel: the hermetic serve module (``serving.py``) is traced
-    through it. ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``,
-    made here when not given (without K4's operands when portable).
+    runs no kernel (each conv's epilogue the plain composition, not K6):
+    the hermetic serve module (``serving.py``) is traced through it.
+    ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``, made here
+    when not given (without K4's operands when portable).
     ``head_inputs``, when a list, receives per head the s8 trunk tensors it
     reads (two for a concat head), so a caller can check what the int8
     trunk decided. ``layout`` (``parallel/spatial.py::Layout``) runs the
@@ -482,12 +482,13 @@ def apply_inference_int8(
         for entry, q in zip(plan, packed[1:]):
             if isinstance(entry, PlanConv):
                 if pending is not None:
-                    xq = _run_conv(q, pending[0], activation, xb=pending[1], rows=rows)
+                    xq = _run_conv(q, pending[0], activation, xb=pending[1], rows=rows,
+                                   portable=portable)
                     pending = None
                 else:
                     if rows is not None:
                         xq, rows = relay(layout.fit, xq, rows, entry.stride)
-                    xq = _run_conv(q, xq, activation, rows=rows)
+                    xq = _run_conv(q, xq, activation, rows=rows, portable=portable)
                 if rows is not None:
                     xq, rows = relay(layout.constrain, xq, rows)
             elif isinstance(entry, PlanResidual):
@@ -496,15 +497,16 @@ def apply_inference_int8(
                     fused = apply_residual_stage_int8_fused(q["stage"], xq, activation,
                                                             kmajor=q["stage_kmajor"])
                 xq = fused if fused is not None else residual_blocks_int8(
-                    xq, q["blocks"], activation, rows)
+                    xq, q["blocks"], activation, rows, portable)
                 if entry.save_route:
                     routes.append(xq)
             elif isinstance(entry, PlanCSP):
-                shortcut = _run_conv(q["split1"], xq, activation)
-                yq = residual_blocks_int8(_run_conv(q["split2"], xq, activation), q["blocks"],
-                                          activation, rows)
-                yq = _run_conv(q["transition"], yq, activation)
-                xq = _run_conv(q["fuse"], yq, activation, xb=shortcut)
+                shortcut = _run_conv(q["split1"], xq, activation, portable=portable)
+                yq = residual_blocks_int8(
+                    _run_conv(q["split2"], xq, activation, portable=portable), q["blocks"],
+                    activation, rows, portable)
+                yq = _run_conv(q["transition"], yq, activation, portable=portable)
+                xq = _run_conv(q["fuse"], yq, activation, xb=shortcut, portable=portable)
                 if entry.save_route:
                     routes.append(xq)
             elif isinstance(entry, PlanHead):
