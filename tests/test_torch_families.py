@@ -19,6 +19,10 @@ apart (this CPU; with torch's thread pool the port's distance is 1e-4 to
 
 import copy
 import dataclasses
+import hashlib
+import json
+import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import MINI_CSP_LAYERS
+from helpers import MINI_CSP_LAYERS, MINI_LAYERS
+from test_torch_yolov4 import model_cfg as yolov4_cfg, small_cfg as yolov4_small
 from torch_eval_weights import eval_weights
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from yolo_for_turbines_tpu.config import ModelConfig as JaxModelConfig
@@ -38,9 +43,12 @@ from yolo_for_turbines_tpu_torch.models.blocks import maxpool2d
 from yolo_for_turbines_tpu_torch.models.convert import (
     folded_from_numpy,
     folded_to_numpy,
+    load_trainable,
     trainable_from_numpy,
     trainable_to_numpy,
 )
+from yolo_for_turbines_tpu_torch.models.darknet_weights import frozen_parameter_names
+from yolo_for_turbines_tpu_torch.serving import tree_to_spec
 from yolo_for_turbines_tpu_torch.models.yolov3 import YOLOv3, build_plan, init_plan
 
 SIZE = 64
@@ -241,6 +249,121 @@ def test_init_plan_has_the_folded_tree_structure(family):
     assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(want)
     for g, w in zip(_leaves(tree), _leaves(want)):
         assert g.shape == w.shape and g.dtype == np.float32
+
+
+# the port-only bridge cases: the mini Darknet-53 and CSP models, tiny, and
+# YOLOv4 at a sixteenth of its widths (tests/test_torch_yolov4.py's), which
+# no JAX-backed bridge test covers
+PORT_FAMILIES = {
+    "darknet53": lambda: ModelConfig(num_classes=2, layer_config=MINI_LAYERS),
+    "csp": lambda: ModelConfig(**FAMILIES["csp"]),
+    "tiny": lambda: ModelConfig(**FAMILIES["tiny"]),
+    "yolov4": lambda: yolov4_cfg(yolov4_small()),
+}
+# init_plan's seed-0 draws for each of them, recorded from the per-entry
+# init that the module traversal replaced: a digest of every leaf's bytes
+# in tree order, and each leaf's shape, exact sum and first element
+INIT_PLAN_DRAWS = json.loads((Path(__file__).parent / "init_plan_draws.json").read_text())
+
+
+def _path_leaves(tree, path=()):
+    """(path, leaf) of a nested dict / list tree, in its order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _path_leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for k, v in enumerate(tree):
+            yield from _path_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def _assert_same_tree(got, want):
+    """Bit for bit, with the same structure, dict key order and dtypes."""
+    spec_g, leaves_g = tree_to_spec(got)
+    spec_w, leaves_w = tree_to_spec(want)
+    assert json.dumps(spec_g) == json.dumps(spec_w)
+    for k, w in leaves_w.items():
+        assert leaves_g[k].dtype == w.dtype and leaves_g[k].tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("family", list(PORT_FAMILIES))
+def test_port_bridges_round_trip_exactly(family):
+    """Port only: a folded tree through the folded module and back, and a
+    trainable pair of trees (every leaf redrawn, so that nothing passes by
+    staying at its init) through the trainable module and back, bit for bit
+    and in key order; an all-True mask names every parameter, in
+    ``named_parameters()``'s order."""
+    c = PORT_FAMILIES[family]()
+    plan = build_plan(c)
+    tree = init_plan(plan, torch.Generator().manual_seed(0))
+    _assert_same_tree(folded_to_numpy(folded_from_numpy(plan, tree, c)), tree)
+
+    rng = np.random.default_rng(1)
+    params, stats = (_map_tree(lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32), t)
+                     for t in trainable_to_numpy(YOLOv3(c, generator=torch.Generator())))
+    port = YOLOv3(c, generator=torch.Generator().manual_seed(2))
+    load_trainable(port, params, stats)
+    got_params, got_stats = trainable_to_numpy(port)
+    _assert_same_tree(got_params, params)
+    _assert_same_tree(got_stats, stats)
+    assert frozen_parameter_names(port, _map_tree(lambda _: True, params)) == [
+        n for n, _ in port.named_parameters()]
+
+
+def _malformed(tree, fault):
+    """``tree`` (a per-entry list) with one fault: an entry missing, a
+    residual stage's last block missing or doubled, or a weight transposed."""
+    tree = copy.deepcopy(tree)
+    stage = next(t for t in tree if "blocks" in t)
+    if fault == "entries":
+        tree.pop()
+    elif fault == "short":
+        stage["blocks"].pop()
+    elif fault == "long":
+        stage["blocks"].append(copy.deepcopy(stage["blocks"][-1]))
+    else:
+        stage["blocks"][0]["conv2"]["w"] = stage["blocks"][0]["conv2"]["w"].transpose(0, 1, 3, 2)
+    return tree
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("entries", "entries"), ("short", "no leaf at path"), ("long", "holds"),
+    ("shape", "weight")])
+def test_bridges_reject_a_malformed_tree(fault, message):
+    c = PORT_FAMILIES["darknet53"]()
+    plan = build_plan(c)
+    folded = _map_tree(np.asarray, init_plan(plan, torch.Generator().manual_seed(0)))
+    with pytest.raises(ValueError, match=message):
+        folded_from_numpy(plan, _malformed(folded, fault), c)
+    port = YOLOv3(c, generator=torch.Generator().manual_seed(1))
+    params, stats = trainable_to_numpy(port)
+    stats = _malformed(stats, fault) if fault == "entries" else stats
+    with pytest.raises(ValueError, match=message):
+        load_trainable(port, _malformed(params, fault), stats)
+
+
+@pytest.mark.parametrize("family", list(PORT_FAMILIES))
+def test_init_plan_draws_are_pinned(family):
+    """A change of init_plan's draw order or of a shape moves a sum, a first
+    element or the digest."""
+    tree = init_plan(build_plan(PORT_FAMILIES[family]()), torch.Generator().manual_seed(0))
+    digest = hashlib.sha256()
+    got = {}
+    for path, t in _path_leaves(tree):
+        digest.update(t.numpy().tobytes())
+        got["/".join(map(str, path))] = [list(t.shape), math.fsum(t.flatten().tolist()),
+                                         float(t.flatten()[0])]
+    assert got == INIT_PLAN_DRAWS[family]["leaves"]
+    assert digest.hexdigest() == INIT_PLAN_DRAWS[family]["sha256"]
 
 
 def test_csp_stage_names_map_the_jax_tree():

@@ -178,6 +178,16 @@ class FoldedConv(nn.Module):
         return y if skip is None else skip + y
 
 
+def residual_blocks(width: int, hidden: int, n: int, conv) -> nn.ModuleList:
+    """``n`` residual blocks, each a ``conv1`` (1x1, ``width`` -> ``hidden``)
+    and a ``conv2`` (3x3, back to ``width``) made by ``conv(in_ch, out_ch,
+    kernel)`` in that order: the JAX tree's ``blocks`` list."""
+    return nn.ModuleList(
+        nn.ModuleDict({"conv1": conv(width, hidden, 1), "conv2": conv(hidden, width, 3)})
+        for _ in range(n)
+    )
+
+
 def cat_channels(parts):
     """``torch.cat`` along channels (NCHW); the bytes it writes are added to
     ``utils/profiling.py::concat_bytes``. Inputs stored channels_last give

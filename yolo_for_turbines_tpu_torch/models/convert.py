@@ -21,19 +21,9 @@ import torch
 
 from ..config import ModelConfig
 from .blocks import ConvBlock
-from .cspdarknet import (
-    SINGLE_CONVS,
-    CSPStage,
-    PlanCSP,
-    TrainableCSPStage,
-    conv_shapes,
-    map_stage,
-    stage_pairs,
-)
+from .cspdarknet import SINGLE_CONVS, PlanCSP, conv_shapes
 from .yolov3 import (
-    FoldedConv,
     FoldedYOLOv3,
-    Head,
     Plan,
     PlanConv,
     PlanHead,
@@ -41,11 +31,12 @@ from .yolov3 import (
     PlanResidual,
     PlanRoute,
     PlanUpsample,
-    ResidualStage,
-    TrainableHead,
-    TrainableResidualStage,
     YOLOv3,
+    conv_paths,
+    conv_trees,
     jax_layout,
+    param_count,
+    tree_leaf,
 )
 
 
@@ -56,12 +47,15 @@ def _to_f32(a) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _fill(conv: FoldedConv, p) -> None:
+def _fill(conv, p) -> None:
+    """A ``FoldedConv`` or ``nn.Conv2d`` from ``{"w": HWIO, "b"}``; a conv
+    without a bias takes ``w`` alone."""
     w = _to_f32(p["w"]).permute(3, 2, 0, 1)  # HWIO -> OIHW
     if tuple(w.shape) != tuple(conv.weight.shape):
         raise ValueError(f"weight {tuple(w.shape)} != module {tuple(conv.weight.shape)}")
     conv.weight.copy_(w)
-    conv.bias.copy_(_to_f32(p["b"]))
+    if conv.bias is not None:
+        conv.bias.copy_(_to_f32(p["b"]))
 
 
 def folded_from_numpy(plan: Plan, folded, cfg: ModelConfig) -> FoldedYOLOv3:
@@ -73,21 +67,11 @@ def folded_from_numpy(plan: Plan, folded, cfg: ModelConfig) -> FoldedYOLOv3:
     model = FoldedYOLOv3(cfg, plan)
     if len(folded) != len(plan):
         raise ValueError(f"folded tree has {len(folded)} entries, plan {len(plan)}")
-    for layer, p in zip(model.layers, folded):
-        if isinstance(layer, FoldedConv):
-            _fill(layer, p["conv"])
-        elif isinstance(layer, ResidualStage):
-            if len(p["blocks"]) != len(layer.blocks):
-                raise ValueError("residual stage block count differs from the plan")
-            for blk, bp in zip(layer.blocks, p["blocks"]):
-                _fill(blk["conv1"], bp["conv1"])
-                _fill(blk["conv2"], bp["conv2"])
-        elif isinstance(layer, CSPStage):
-            for conv, cp in stage_pairs(layer, p):
-                _fill(conv, cp)
-        elif isinstance(layer, Head):
-            _fill(layer.conv1, p["conv1"])
-            _fill(layer.conv2, p["conv2"])
+    for i, path, conv in conv_paths(model.layers):
+        _fill(conv, tree_leaf(folded, (i, *path)))
+    if param_count(folded) != param_count(model):  # leaves the module lacks: more blocks
+        raise ValueError(f"folded tree holds {param_count(folded)} weights, plan "
+                         f"{param_count(model)}")
     return model
 
 
@@ -95,34 +79,13 @@ def folded_to_numpy(model: FoldedYOLOv3) -> list:
     """Inverse of :func:`folded_from_numpy`: the module's weights as a folded
     tree in the JAX layout (HWIO), numpy in the weights' own precision
     (f32 unless the module was cast)."""
-
-    def conv(c: FoldedConv) -> dict:
-        return jax_layout(c.weight, c.bias)
-
-    folded = []
-    for layer in model.layers:
-        if isinstance(layer, FoldedConv):
-            folded.append({"conv": conv(layer)})
-        elif isinstance(layer, ResidualStage):
-            folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
-                                      for blk in layer.blocks]})
-        elif isinstance(layer, CSPStage):
-            folded.append(map_stage(layer, conv))
-        elif isinstance(layer, Head):
-            folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
-        else:
-            folded.append({})
-    return folded
+    return conv_trees(model.layers, lambda conv: jax_layout(conv.weight, conv.bias))
 
 
 @torch.no_grad()
 def _fill_trainable(block: ConvBlock, p, s) -> None:
-    w = _to_f32(p["w"]).permute(3, 2, 0, 1)  # HWIO -> OIHW
-    if tuple(w.shape) != tuple(block.conv.weight.shape):
-        raise ValueError(f"weight {tuple(w.shape)} != module {tuple(block.conv.weight.shape)}")
-    block.conv.weight.copy_(w)
+    _fill(block.conv, p)
     if block.bn is None:
-        block.conv.bias.copy_(_to_f32(p["b"]))
         return
     block.bn.weight.copy_(_to_f32(p["scale"]))
     block.bn.bias.copy_(_to_f32(p["bias"]))
@@ -149,21 +112,11 @@ def load_trainable(model: YOLOv3, params, batch_stats) -> None:
     if not len(params) == len(batch_stats) == len(model.plan):
         raise ValueError(f"trees have {len(params)} and {len(batch_stats)} entries, "
                          f"plan {len(model.plan)}")
-    for layer, p, s in zip(model.layers, params, batch_stats):
-        if isinstance(layer, ConvBlock):
-            _fill_trainable(layer, p["conv"], s["conv"])
-        elif isinstance(layer, TrainableResidualStage):
-            if not len(p["blocks"]) == len(s["blocks"]) == len(layer.blocks):
-                raise ValueError("residual stage block count differs from the plan")
-            for blk, bp, bs in zip(layer.blocks, p["blocks"], s["blocks"]):
-                _fill_trainable(blk["conv1"], bp["conv1"], bs["conv1"])
-                _fill_trainable(blk["conv2"], bp["conv2"], bs["conv2"])
-        elif isinstance(layer, TrainableCSPStage):
-            for (block, cp), (_, cs) in zip(stage_pairs(layer, p), stage_pairs(layer, s)):
-                _fill_trainable(block, cp, cs)
-        elif isinstance(layer, TrainableHead):
-            _fill_trainable(layer.conv1, p["conv1"], s["conv1"])
-            _fill_trainable(layer.conv2, p["conv2"], None)
+    for i, path, block in conv_paths(model.layers):
+        _fill_trainable(block, tree_leaf(params, (i, *path)), tree_leaf(batch_stats, (i, *path)))
+    if param_count(params) != param_count(model):  # leaves the module lacks: more blocks
+        raise ValueError(f"params tree holds {param_count(params)} weights, plan "
+                         f"{param_count(model)}")
 
 
 def trainable_to_numpy(model: YOLOv3):
@@ -174,34 +127,18 @@ def trainable_to_numpy(model: YOLOv3):
         # a copy: .numpy() of a CPU f32 tensor would alias the live weights
         return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
-    def conv(block: ConvBlock):
+    def params(block: ConvBlock) -> dict:
         w = arr(block.conv.weight.permute(2, 3, 1, 0)).copy()  # OIHW -> HWIO
         if block.bn is None:
-            return {"w": w, "b": arr(block.conv.bias)}, None
-        return ({"w": w, "scale": arr(block.bn.weight), "bias": arr(block.bn.bias)},
-                {"mean": arr(block.bn.running_mean), "var": arr(block.bn.running_var)})
+            return {"w": w, "b": arr(block.conv.bias)}
+        return {"w": w, "scale": arr(block.bn.weight), "bias": arr(block.bn.bias)}
 
-    params, stats = [], []
-    for layer in model.layers:
-        if isinstance(layer, ConvBlock):
-            p, s = conv(layer)
-            params.append({"conv": p})
-            stats.append({"conv": s})
-        elif isinstance(layer, TrainableResidualStage):
-            pairs = [{k: conv(blk[k]) for k in ("conv1", "conv2")} for blk in layer.blocks]
-            params.append({"blocks": [{k: v[0] for k, v in b.items()} for b in pairs]})
-            stats.append({"blocks": [{k: v[1] for k, v in b.items()} for b in pairs]})
-        elif isinstance(layer, TrainableCSPStage):
-            params.append(map_stage(layer, lambda block: conv(block)[0]))
-            stats.append(map_stage(layer, lambda block: conv(block)[1]))
-        elif isinstance(layer, TrainableHead):
-            (p1, s1), (p2, s2) = conv(layer.conv1), conv(layer.conv2)
-            params.append({"conv1": p1, "conv2": p2})
-            stats.append({"conv1": s1, "conv2": s2})
-        else:
-            params.append({})
-            stats.append({})
-    return params, stats
+    def stats(block: ConvBlock):
+        if block.bn is None:
+            return None
+        return {"mean": arr(block.bn.running_mean), "var": arr(block.bn.running_var)}
+
+    return conv_trees(model.layers, params), conv_trees(model.layers, stats)
 
 
 def _leaf(a, device) -> torch.Tensor:

@@ -18,7 +18,7 @@ import dataclasses
 
 import torch.nn as nn
 
-from .blocks import ConvBlock, FoldedConv, cat_channels
+from .blocks import ConvBlock, FoldedConv, cat_channels, residual_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,77 +83,41 @@ def conv_shapes(entry: PlanCSP) -> dict:
             "fuse": (2 * bc, c, 1), "conv1": (bc, hc, 1), "conv2": (hc, bc, 3)}
 
 
-def _forward(stage, x, act, rows=None):
-    """``apply_csp_entry``'s order, shared by both modules."""
-    shortcut = stage.split1(x, act, rows)
-    y = stage.split2(x, act, rows)
-    for blk in stage.blocks:
-        y = blk["conv2"](blk["conv1"](y, act, rows), act, rows, skip=y)
-    y = stage.transition(y, act, rows)
-    return stage.fuse(cat_channels([y, shortcut]), act, rows)
+class _Stage(nn.Module):
+    """A CSP stage's convs, each ``conv(in_ch, out_ch, kernel)``, made and
+    registered in the order split1, split2, the blocks, transition, fuse;
+    the forward is ``apply_csp_entry``'s."""
+
+    def __init__(self, entry: PlanCSP, conv):
+        super().__init__()
+        self.entry = entry
+        shapes = conv_shapes(entry)
+        self.split1 = conv(*shapes["split1"])
+        self.split2 = conv(*shapes["split2"])
+        self.blocks = residual_blocks(entry.branch_ch, entry.hidden_ch, entry.num_blocks, conv)
+        self.transition = conv(*shapes["transition"])
+        self.fuse = conv(*shapes["fuse"])
+
+    def forward(self, x, act, rows=None):
+        shortcut = self.split1(x, act, rows)
+        y = self.split2(x, act, rows)
+        for blk in self.blocks:
+            y = blk["conv2"](blk["conv1"](y, act, rows), act, rows, skip=y)
+        y = self.transition(y, act, rows)
+        return self.fuse(cat_channels([y, shortcut]), act, rows)
 
 
-class TrainableCSPStage(nn.Module):
+class TrainableCSPStage(_Stage):
     """A CSP stage of ``ConvBlock``s (conv + BN + activation); weights drawn
     from ``generator`` in the order split1, split2, the blocks, transition,
     fuse."""
 
     def __init__(self, entry: PlanCSP, generator=None):
-        super().__init__()
-        self.entry = entry
-        shapes = conv_shapes(entry)
-
-        def conv(name):
-            return ConvBlock(*shapes[name], generator=generator)
-
-        self.split1 = conv("split1")
-        self.split2 = conv("split2")
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({"conv1": conv("conv1"), "conv2": conv("conv2")})
-            for _ in range(entry.num_blocks)
-        )
-        self.transition = conv("transition")
-        self.fuse = conv("fuse")
-
-    def forward(self, x, act, rows=None):
-        return _forward(self, x, act, rows)
+        super().__init__(entry, lambda *shape: ConvBlock(*shape, generator=generator))
 
 
-class CSPStage(nn.Module):
+class CSPStage(_Stage):
     """A CSP stage over BN-folded weights (conv + bias + activation)."""
 
     def __init__(self, entry: PlanCSP):
-        super().__init__()
-        self.entry = entry
-        shapes = conv_shapes(entry)
-        self.split1 = FoldedConv(*shapes["split1"])
-        self.split2 = FoldedConv(*shapes["split2"])
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({"conv1": FoldedConv(*shapes["conv1"]),
-                           "conv2": FoldedConv(*shapes["conv2"])})
-            for _ in range(entry.num_blocks)
-        )
-        self.transition = FoldedConv(*shapes["transition"])
-        self.fuse = FoldedConv(*shapes["fuse"])
-
-    def forward(self, x, act, rows=None):
-        return _forward(self, x, act, rows)
-
-
-def map_stage(stage, fn) -> dict:
-    """The JAX tree of one CSP stage: ``fn(conv module)`` at each conv's
-    place (``{"split1", "split2", "blocks": [{"conv1", "conv2"}], ...}``)."""
-    out = {k: fn(getattr(stage, k)) for k in SINGLE_CONVS}
-    out["blocks"] = [{k: fn(blk[k]) for k in ("conv1", "conv2")} for blk in stage.blocks]
-    return out
-
-
-def stage_pairs(stage, tree):
-    """(conv module, its subtree of ``tree``) for every conv of the stage,
-    in the order of the JAX tree's keys; checks the block count."""
-    if len(tree["blocks"]) != len(stage.blocks):
-        raise ValueError("CSP stage block count differs from the plan")
-    pairs = [(getattr(stage, k), tree[k]) for k in SINGLE_CONVS]
-    for blk, bt in zip(stage.blocks, tree["blocks"]):
-        pairs += [(blk["conv1"], bt["conv1"]), (blk["conv2"], bt["conv2"])]
-    return pairs
+        super().__init__(entry, FoldedConv)

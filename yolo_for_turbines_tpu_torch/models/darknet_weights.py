@@ -31,11 +31,11 @@ port's trainable module and names its frozen parameters.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .cspdarknet import SINGLE_CONVS, PlanCSP, TrainableCSPStage
+from .cspdarknet import SINGLE_CONVS, PlanCSP
 from .yolov3 import (
     Plan,
     PlanConv,
@@ -44,12 +44,11 @@ from .yolov3 import (
     PlanResidual,
     PlanRoute,
     PlanUpsample,
-    TrainableHead,
-    TrainableResidualStage,
     YOLOv3,
+    conv_paths,
     has_yolov4_entries,
+    tree_leaf,
 )
-from .blocks import ConvBlock
 
 
 class _Reader:
@@ -217,29 +216,12 @@ _LEAF_PARAMS = {"w": "conv.weight", "b": "conv.bias", "scale": "bn.weight", "bia
 
 def frozen_parameter_names(model: YOLOv3, frozen_mask) -> List[str]:
     """The ``model.named_parameters()`` names of the leaves that
-    ``frozen_mask`` (a :func:`load_darknet_weights` mask) marks frozen."""
-    names: List[str] = []
-
-    def block(prefix: str, mask: Dict) -> None:
-        names.extend(f"{prefix}.{_LEAF_PARAMS[k]}" for k, v in mask.items() if v)
-
-    for i, (layer, m) in enumerate(zip(model.layers, frozen_mask)):
-        if isinstance(layer, ConvBlock):
-            block(f"layers.{i}", m["conv"])
-        elif isinstance(layer, TrainableResidualStage):
-            for j, bm in enumerate(m["blocks"]):
-                for k in ("conv1", "conv2"):
-                    block(f"layers.{i}.blocks.{j}.{k}", bm[k])
-        elif isinstance(layer, TrainableCSPStage):
-            for k in SINGLE_CONVS:
-                block(f"layers.{i}.{k}", m[k])
-            for j, bm in enumerate(m["blocks"]):
-                for k in ("conv1", "conv2"):
-                    block(f"layers.{i}.blocks.{j}.{k}", bm[k])
-        elif isinstance(layer, TrainableHead):
-            for k in ("conv1", "conv2"):
-                block(f"layers.{i}.{k}", m[k])
-    return names
+    ``frozen_mask`` (a :func:`load_darknet_weights` mask) marks frozen, in
+    that order."""
+    frozen = {id(block.get_parameter(_LEAF_PARAMS[k]))
+              for i, path, block in conv_paths(model.layers)
+              for k, v in tree_leaf(frozen_mask, (i, *path)).items() if v}
+    return [name for name, p in model.named_parameters() if id(p) in frozen]
 
 
 def load_darknet_into(weights_path: str, model: YOLOv3,

@@ -34,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import ClassVar, List, Optional, Tuple
+from typing import ClassVar, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,14 +49,20 @@ from ..ops.kernels.resblock_kernel import (
     stage_wins,
 )
 from ..utils.profiling import span
-from .blocks import ConvBlock, FoldedConv, cat_channels, get_activation, maxpool2d, upsample2x
+from .blocks import (
+    ConvBlock,
+    FoldedConv,
+    cat_channels,
+    get_activation,
+    maxpool2d,
+    residual_blocks,
+    upsample2x,
+)
 from .cspdarknet import (
     CSP_LAYER_CONFIG,
     CSPStage,
     PlanCSP,
     TrainableCSPStage,
-    conv_shapes,
-    map_stage,
 )
 
 # Same declarative architecture list as the JAX package (reference:
@@ -364,7 +370,7 @@ def param_count(params) -> int:
         return sum(param_count(v) for v in params.values())
     if isinstance(params, (list, tuple)):
         return sum(param_count(v) for v in params)
-    return 0 if params is None else int(np.prod(params.shape))
+    return 0 if params is None else int(np.prod(np.shape(params)))
 
 
 def jax_layout(w: torch.Tensor, b: torch.Tensor) -> dict:
@@ -393,11 +399,8 @@ class TrainableResidualStage(nn.Module):
         super().__init__()
         c = entry.channels
         self.entry = entry
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({"conv1": ConvBlock(c, c // 2, 1, generator=generator),
-                           "conv2": ConvBlock(c // 2, c, 3, generator=generator)})
-            for _ in range(entry.num_blocks)
-        )
+        self.blocks = residual_blocks(c, c // 2, entry.num_blocks,
+                                      lambda *shape: ConvBlock(*shape, generator=generator))
 
     def forward(self, x, act, rows=None):
         for blk in self.blocks:
@@ -438,25 +441,8 @@ class YOLOv3(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.plan = build_plan(cfg) if plan is None else plan
-        layers = []
-        for entry in self.plan:
-            if isinstance(entry, PlanConv):
-                layers.append(ConvBlock(entry.in_ch, entry.out_ch, entry.kernel, entry.stride,
-                                        bn=entry.bn, generator=generator))
-            elif isinstance(entry, PlanResidual):
-                layers.append(TrainableResidualStage(entry, generator))
-            elif isinstance(entry, PlanCSP):
-                layers.append(TrainableCSPStage(entry, generator))
-            elif isinstance(entry, PlanHead):
-                layers.append(TrainableHead(entry, generator))
-            elif isinstance(entry, PlanLateral):
-                layers.append(ConvBlock(entry.in_ch, entry.out_ch, 1, generator=generator))
-            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
-                layers.append(nn.Identity())
-            else:
-                raise TypeError(f"unknown plan entry {entry!r}")
-        self.layers = nn.ModuleList(layers)
-        self._parts = _parts(self.plan, layers)
+        self.layers = plan_layers(self.plan, folded=False, generator=generator)
+        self._parts = _parts(self.plan, self.layers)
 
     @property
     def strides(self) -> Tuple[int, ...]:
@@ -481,83 +467,7 @@ class YOLOv3(nn.Module):
         folded tree in the JAX layout (HWIO numpy float32), which
         ``models/convert.py::folded_from_numpy`` and
         ``Predictor.from_folded`` take."""
-
-        def conv(block: ConvBlock) -> dict:
-            return jax_layout(**block.folded())
-
-        folded = []
-        for layer in self.layers:
-            if isinstance(layer, ConvBlock):
-                folded.append({"conv": conv(layer)})
-            elif isinstance(layer, TrainableResidualStage):
-                folded.append({"blocks": [{k: conv(blk[k]) for k in ("conv1", "conv2")}
-                                          for blk in layer.blocks]})
-            elif isinstance(layer, TrainableCSPStage):
-                folded.append(map_stage(layer, conv))
-            elif isinstance(layer, TrainableHead):
-                folded.append({"conv1": conv(layer.conv1), "conv2": conv(layer.conv2)})
-            else:
-                folded.append({})
-        return folded
-
-
-# ---------------------------------------------------------------------------
-# Init of a folded tree
-# ---------------------------------------------------------------------------
-
-
-def _init_folded_conv(gen, in_ch, out_ch, kernel, bn=True):
-    """Folded twin of the JAX ``init_conv``: weights U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)) in HWIO; a fresh BN (scale 1, bias 0, mean 0, var 1)
-    folds to w / sqrt(1 + eps) and a zero bias; a head's 1x1 keeps its
-    uniform bias."""
-    bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
-    w = (torch.rand(kernel, kernel, in_ch, out_ch, generator=gen) * 2 - 1) * bound
-    if bn:
-        return {"w": w / math.sqrt(1.0 + 1e-5), "b": torch.zeros(out_ch)}
-    return {"w": w, "b": (torch.rand(out_ch, generator=gen) * 2 - 1) * bound}
-
-
-def init_plan(plan: Plan, generator: torch.Generator):
-    """Random folded tree aligned with a plan, in the layout of the JAX
-    ``fold_params`` output (HWIO weights), as CPU float32 tensors."""
-    folded = []
-    for entry in plan:
-        if isinstance(entry, PlanConv):
-            folded.append({"conv": _init_folded_conv(
-                generator, entry.in_ch, entry.out_ch, entry.kernel, entry.bn)})
-        elif isinstance(entry, PlanResidual):
-            c = entry.channels
-            folded.append({"blocks": [
-                {"conv1": _init_folded_conv(generator, c, c // 2, 1),
-                 "conv2": _init_folded_conv(generator, c // 2, c, 3)}
-                for _ in range(entry.num_blocks)
-            ]})
-        elif isinstance(entry, PlanCSP):
-            # drawn in the module's order: split1, split2, the blocks,
-            # transition, fuse
-            shapes = conv_shapes(entry)
-            names = ["split1", "split2", *["conv1", "conv2"] * entry.num_blocks,
-                     "transition", "fuse"]
-            convs = [_init_folded_conv(generator, *shapes[k]) for k in names]
-            stage = dict(zip(("split1", "split2"), convs[:2]))
-            stage["blocks"] = [{"conv1": convs[i], "conv2": convs[i + 1]}
-                               for i in range(2, len(convs) - 2, 2)]
-            stage.update(zip(("transition", "fuse"), convs[-2:]))
-            folded.append(stage)
-        elif isinstance(entry, PlanHead):
-            out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
-            folded.append({
-                "conv1": _init_folded_conv(generator, entry.in_ch, entry.mid, 3),
-                "conv2": _init_folded_conv(generator, entry.mid, out_ch, 1, bn=False),
-            })
-        elif isinstance(entry, PlanLateral):
-            folded.append({"conv": _init_folded_conv(generator, entry.in_ch, entry.out_ch, 1)})
-        elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
-            folded.append({})
-        else:
-            raise TypeError(f"unknown plan entry {entry!r}")
-    return folded
+        return conv_trees(self.layers, lambda block: jax_layout(**block.folded()))
 
 
 # ---------------------------------------------------------------------------
@@ -572,11 +482,7 @@ class ResidualStage(nn.Module):
         super().__init__()
         c = entry.channels
         self.entry = entry
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({"conv1": FoldedConv(c, c // 2, 1),
-                           "conv2": FoldedConv(c // 2, c, 3)})
-            for _ in range(entry.num_blocks)
-        )
+        self.blocks = residual_blocks(c, c // 2, entry.num_blocks, FoldedConv)
         self._stacked = None
         self._kmajor = None
         self._weights_key = None
@@ -663,6 +569,117 @@ class Head(nn.Module):
         return self.conv2(self.conv1(x, act, rows), rows=rows)
 
 
+# ---------------------------------------------------------------------------
+# The layers of a plan, and the JAX tree of their convs
+# ---------------------------------------------------------------------------
+
+# Each plan entry type's (trainable layer, folded layer): factories of
+# (entry, generator) and of (entry). An entry without weights is an
+# nn.Identity in both (it takes and ignores any arguments).
+LAYERS = {
+    PlanConv: (lambda e, g: ConvBlock(e.in_ch, e.out_ch, e.kernel, e.stride, bn=e.bn,
+                                      generator=g),
+               lambda e: FoldedConv(e.in_ch, e.out_ch, e.kernel, e.stride)),
+    PlanLateral: (lambda e, g: ConvBlock(e.in_ch, e.out_ch, 1, generator=g),
+                  lambda e: FoldedConv(e.in_ch, e.out_ch, 1)),
+    PlanResidual: (TrainableResidualStage, ResidualStage),
+    PlanCSP: (TrainableCSPStage, CSPStage),
+    PlanHead: (TrainableHead, Head),
+    PlanGridHead: (TrainableHead, Head),
+    **{t: (nn.Identity, nn.Identity)
+       for t in (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)},
+}
+
+
+def plan_layers(plan: Plan, folded: bool, generator=None) -> nn.ModuleList:
+    """One layer per plan entry, from ``LAYERS``: the folded ones, or the
+    trainable ones with their weights drawn from ``generator``."""
+    layers = []
+    for entry in plan:
+        if type(entry) not in LAYERS:
+            raise TypeError(f"unknown plan entry {entry!r}")
+        trainable, fold = LAYERS[type(entry)]
+        layers.append(fold(entry) if folded else trainable(entry, generator))
+    return nn.ModuleList(layers)
+
+
+def conv_paths(layers) -> Iterator[Tuple[int, tuple, nn.Module]]:
+    """``(entry index, key path, conv)`` for every conv (``ConvBlock`` or
+    ``FoldedConv``) of ``layers``, in registration order, which is the JAX
+    init order (a CSP stage: split1, split2, the blocks, transition, fuse).
+    The JAX tree holds the conv at that path of entry ``index``'s tree: the
+    conv's own name in its layer (``blocks.3.conv1`` -> ``("blocks", 3,
+    "conv1")``), and ``("conv",)`` for a layer that is itself a conv."""
+    for i, layer in enumerate(layers):
+        for name, module in layer.named_modules():
+            if isinstance(module, (ConvBlock, FoldedConv)):
+                path = tuple(int(k) if k.isdigit() else k for k in name.split("."))
+                yield i, path if name else ("conv",), module
+
+
+def tree_leaf(tree, path: tuple):
+    """The leaf of a nested dict / list tree at ``path``."""
+    for key in path:
+        try:
+            tree = tree[key]
+        except (KeyError, IndexError, TypeError):
+            raise ValueError(f"no leaf at path {path}") from None
+    return tree
+
+
+def tree_insert(tree, path: tuple, leaf) -> None:
+    """Put ``leaf`` at ``path`` of a nested dict / list tree, making a dict
+    under each str key and a list under each int key on the way; the ints of
+    a list come in order (each appends), dict keys in insertion order."""
+    for depth, key in enumerate(path):
+        new = (leaf if depth == len(path) - 1
+               else [] if isinstance(path[depth + 1], int) else {})
+        if isinstance(tree, list):
+            if key == len(tree):
+                tree.append(new)
+        else:
+            tree.setdefault(key, new)
+        tree = tree[key]
+
+
+def conv_trees(layers, fn) -> list:
+    """The JAX tree of ``layers``: ``fn(conv)`` at each conv's path, ``{}``
+    for an entry without weights."""
+    trees = [{} for _ in layers]
+    for i, path, conv in conv_paths(layers):
+        tree_insert(trees[i], path, fn(conv))
+    return trees
+
+
+def _init_folded_conv(gen, in_ch, out_ch, kernel, bn=True):
+    """Folded twin of the JAX ``init_conv``: weights U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) in HWIO; a fresh BN (scale 1, bias 0, mean 0, var 1)
+    folds to w / sqrt(1 + eps) and a zero bias; a head's 1x1 keeps its
+    uniform bias."""
+    bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+    w = (torch.rand(kernel, kernel, in_ch, out_ch, generator=gen) * 2 - 1) * bound
+    if bn:
+        return {"w": w / math.sqrt(1.0 + 1e-5), "b": torch.zeros(out_ch)}
+    return {"w": w, "b": (torch.rand(out_ch, generator=gen) * 2 - 1) * bound}
+
+
+def init_plan(plan: Plan, generator: torch.Generator):
+    """Random folded tree aligned with a plan, in the layout of the JAX
+    ``fold_params`` output (HWIO weights), as CPU float32 tensors."""
+    # the folded layers on the meta device: their convs' paths and shapes,
+    # no memory
+    with torch.device("meta"):
+        layers = plan_layers(plan, folded=True)
+    folded = [{} for _ in plan]
+    for i, path, conv in conv_paths(layers):
+        out_ch, in_ch, kernel, _ = conv.weight.shape
+        # BN-free: a head's last 1x1 (its tree's top-level "conv2") and a
+        # PlanConv with bn=False
+        bn = getattr(plan[i], "bn", True) and path != ("conv2",)
+        tree_insert(folded[i], path, _init_folded_conv(generator, in_ch, out_ch, kernel, bn))
+    return folded
+
+
 class FoldedYOLOv3(nn.Module):
     """Folded-BN inference forward with raw heads.
 
@@ -680,24 +697,8 @@ class FoldedYOLOv3(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.plan = build_plan(cfg) if plan is None else plan
-        layers = []
-        for entry in self.plan:
-            if isinstance(entry, PlanConv):
-                layers.append(FoldedConv(entry.in_ch, entry.out_ch, entry.kernel, entry.stride))
-            elif isinstance(entry, PlanResidual):
-                layers.append(ResidualStage(entry))
-            elif isinstance(entry, PlanCSP):
-                layers.append(CSPStage(entry))
-            elif isinstance(entry, PlanHead):
-                layers.append(Head(entry))
-            elif isinstance(entry, PlanLateral):
-                layers.append(FoldedConv(entry.in_ch, entry.out_ch, 1))
-            elif isinstance(entry, (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)):
-                layers.append(nn.Identity())
-            else:
-                raise TypeError(f"unknown plan entry {entry!r}")
-        self.layers = nn.ModuleList(layers)
-        self._parts = _parts(self.plan, layers)
+        self.layers = plan_layers(self.plan, folded=True)
+        self._parts = _parts(self.plan, self.layers)
         # cfg.s2d_stem is a train-mode TPU layout and is ignored here
         self.fuse_resblocks = cfg.fuse_resblocks
 
