@@ -53,6 +53,15 @@ Phases, one JSON line each:
           416x416x32, 208x208x64 with a residual, 52x52x256 and 13x13x1024
           beside their byte bounds and the composition; alone, with the env
           and build lines: python3 -c "import chip_smoke; chip_smoke.k6_alone()";
+  k7      an s8 conv as an implicit GEMM (i32 out) against the plain version
+          it replaced (im2col copy and torch._int_mm) at every Darknet-53
+          product geometry at 416px, B = 128, through the router: sums equal
+          bit for bit, one launch each; CUDA-event times beside each
+          geometry's bound (operations at the s8 peak or bytes) and the
+          plain version's, and their sums per forward; IGMMA and UTMALDG
+          instructions of the built kernel counted in cuobjdump's SASS
+          (both must be present); alone, with the env and build lines:
+          python3 -c "import chip_smoke; chip_smoke.k7_alone()";
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K5 exactly 59 times per predict_batch at B = 8 and 128;
@@ -65,8 +74,8 @@ Phases, one JSON line each:
           must agree with the f32 CPU forward;
   main_int8  the same model quantized (int8 PTQ, calibrated on 8 seeded
           images) and served through the same entry points: K1 and K4 must
-          launch (K5 never), K6 exactly 53 times per predict_batch at B = 8
-          and 128, outputs must be finite and well shaped, and against the
+          launch (K5 never), K6 exactly 53 and K7 55 times per predict_batch
+          at B = 8 and 128, outputs must be finite and well shaped, and against the
           port's int8 CPU forward of the same qparams the s8 trunk codes
           each head reads must agree and the raw heads must agree (cosine);
           a predictor built for 608px, quantized the same way and fed the
@@ -286,6 +295,19 @@ K5_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
 # K6 launches per int8 Darknet-53 predict_batch at 416px (any B): every int8
 # conv outside K4's 26x26x512 stage and the heads (bf16)
 K6_PER_CALL = 53
+# K7 launches per int8 Darknet-53 predict_batch at 416px (any B): the
+# products of K6's 53 convs, two of which read a concat as two products
+K7_PER_CALL = 55
+# K7's geometries, every product of Darknet-53 at 416px outside K4's stage:
+# (H = W, Cin, Cout, kernel, stride, products per forward); the stem's Cin 3
+# goes through its im2col copy, then K7 as a 1x1 over the copy's rows
+K7_GEOMETRIES = ((416, 3, 32, 3, 1, 1), (416, 32, 64, 3, 2, 1), (208, 64, 32, 1, 1, 1),
+                 (208, 32, 64, 3, 1, 1), (208, 64, 128, 3, 2, 1), (104, 128, 64, 1, 1, 2),
+                 (104, 64, 128, 3, 1, 2), (104, 128, 256, 3, 2, 1), (52, 256, 128, 1, 1, 10),
+                 (52, 128, 256, 3, 1, 10), (52, 128, 128, 1, 1, 1), (52, 256, 512, 3, 2, 1),
+                 (26, 512, 1024, 3, 2, 1), (26, 256, 256, 1, 1, 1), (26, 512, 256, 1, 1, 3),
+                 (26, 256, 512, 3, 1, 2), (26, 256, 128, 1, 1, 1), (13, 1024, 512, 1, 1, 7),
+                 (13, 512, 1024, 3, 1, 6), (13, 512, 256, 1, 1, 1))
 # K6's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, residual) of
 # the stem conv, a 208x208 residual block's 3x3 (the block's input added),
 # a 52x52 1x1 and the 13x13 neck's 3x3
@@ -389,6 +411,21 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 100):
+    """Microseconds per call of ``fn`` after a warm-up: on the host (the
+    Python call until it returns, its launches queued, not awaited) and
+    on the wall clock until the card has finished them all."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6, (time.perf_counter() - t0) / calls * 1e6
 
 
 def ab_ms(kernel_fn, plain_fn, iters: int, plain_iters: int):
@@ -990,6 +1027,107 @@ def phase_k6(dev):
             "library_ms": None, "timed": rows, "least_share_of_bound": worst["share_of_bound"]}
 
 
+def phase_k7(dev):
+    """K7 against the plain version it replaced (the im2col copy and
+    ``int_mm``) at every Darknet-53 product geometry at B = 128, through the
+    router ``models/quantize.py::_conv_i8`` takes: i32 sums equal bit for bit,
+    then each geometry's time beside its bound (the larger of its
+    operations at the s8 peak and its bytes: s8 input, weights, i32 output)
+    and the plain version's, in turns; the sums per forward; IGMMA and
+    UTMALDG instructions of the built kernel counted in cuobjdump's SASS.
+    Then at B = 1, where the launches are short, each geometry's host time
+    per ``_conv_i8`` call beside its device time, K7's route and the plain
+    version's."""
+    from yolo_for_turbines_tpu_torch.models import quantize as tq
+    from yolo_for_turbines_tpu_torch.ops.kernels import int8_conv_kernel as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {"phase": "k7", "kernel": "int8_conv", "timed": []}
+    out["sass"] = sass_counts("conv_int8_wgmma_kernel", ("IGMMA", "UTMALDG"))
+    require(all(out["sass"].values()), f"K7's SASS lacks IGMMA or UTMALDG: {out['sass']}")
+    ck.launches = 0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for side, cin, cout, kernel, stride, per_forward in K7_GEOMETRIES:
+        xq = torch.randint(-127, 128, (128, side, side, cin), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wmat = tq._wmat(torch.randint(-127, 128, (kernel, kernel, cin, cout), generator=gen,
+                                      device=dev, dtype=torch.int8))
+        wk = ck.kmajor(wmat, cin, kernel)
+        pad = kernel // 2
+        before = ck.launches
+        got = tq._conv_i8(xq, wmat, kernel, stride, pad, wk=wk)
+        want = ck.int8_conv_reference(xq, wmat, kernel, stride, pad)
+        torch.cuda.synchronize()
+        name = f"{side}x{side}x{cin}->{cout} k{kernel}s{stride}"
+        differing = int((got != want).sum())
+        if differing or ck.launches != before + 1:
+            emit(out)
+            raise AssertionError(f"K7 at {name}: {differing} sums differ, "
+                                 f"{ck.launches - before} launches")
+        ho = got.shape[1]
+        ops = 2.0 * 128 * ho * ho * kernel * kernel * cin * cout
+        nbytes = xq.numel() + wmat.numel() + got.numel() * 4
+        ms, plain_ms = ab_ms(lambda: tq._conv_i8(xq, wmat, kernel, stride, pad, wk=wk),
+                             lambda: ck.int8_conv_reference(xq, wmat, kernel, stride, pad),
+                             iters=20, plain_iters=5)
+        bound_ms, bound_by = bound_of(nbytes, ops, INT8_OPS)
+        row = {"geometry": name, "B": 128, "per_forward": per_forward, "ms": ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "plain_ms": plain_ms}
+        out["timed"].append(row)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            totals[key] += per_forward * v
+        del xq, wmat, wk, got, want
+        torch.cuda.empty_cache()
+    out["per_forward"] = totals
+    out["B1"], host = [], {"host_us": 0.0, "wall_us": 0.0, "device_us": 0.0,
+                           "plain_host_us": 0.0, "plain_device_us": 0.0}
+    for side, cin, cout, kernel, stride, per_forward in K7_GEOMETRIES:
+        xq = torch.randint(-127, 128, (1, side, side, cin), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wmat = tq._wmat(torch.randint(-127, 128, (kernel, kernel, cin, cout), generator=gen,
+                                      device=dev, dtype=torch.int8))
+        wk = ck.kmajor(wmat, cin, kernel)
+        pad = kernel // 2
+
+        def k7():
+            return tq._conv_i8(xq, wmat, kernel, stride, pad, wk=wk)
+
+        def plain():
+            return tq._conv_i8(xq, wmat, kernel, stride, pad, portable=True)
+
+        row = {"geometry": f"{side}x{side}x{cin}->{cout} k{kernel}s{stride}", "B": 1}
+        row["host_us"], row["wall_us"] = host_us(k7)
+        row["device_us"] = cuda_ms(k7, 50) * 1e3
+        try:
+            row["plain_host_us"], _ = host_us(plain)
+            row["plain_device_us"] = cuda_ms(plain, 50) * 1e3
+        except RuntimeError as e:  # cuBLAS's int8 product refuses some small products
+            row["plain_host_us"] = row["plain_device_us"] = None
+            row["plain_error"] = str(e).splitlines()[0][:120]
+        out["B1"].append(row)
+        for key in host:
+            if row[key] is not None:
+                host[key] += per_forward * row[key]
+    out["B1_per_forward"] = host
+    emit(out)
+    worst = min(out["timed"], key=lambda r: r["share_of_bound"])
+    return {"ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            "bound_by": "bytes and operations, per geometry", "library_ms": None,
+            "timed": out["timed"], "least_share_of_bound": worst["share_of_bound"]}
+
+
+def k7_alone() -> None:
+    """The env and build lines, then phase k7, on the first card."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    phase_k7(torch.device("cuda", 0))
+
+
 def k6_alone() -> None:
     """The env and build lines, then phase k6, on the first card."""
     from yolo_for_turbines_tpu_torch.ops import kernels
@@ -1159,6 +1297,7 @@ def phase_main_int8(dev, bf16_rates):
     from yolo_for_turbines_tpu_torch.models.quantize import apply_inference_int8
     from yolo_for_turbines_tpu_torch.ops.kernels import (
         epilogue_kernel,
+        int8_conv_kernel,
         int8_epilogue_kernel,
         iou_kernel,
         nms_kernel,
@@ -1199,14 +1338,15 @@ def phase_main_int8(dev, bf16_rates):
                              f"K5 launches {epilogue_kernel.launches}")
     per_call = []
     for b in (8, 128):
-        int8_epilogue_kernel.launches = 0
+        int8_epilogue_kernel.launches = int8_conv_kernel.launches = 0
         pred.predict_batch(batches[b])
-        per_call.append(int8_epilogue_kernel.launches)
-    out["int8_epilogue_launches_per_predict_batch"] = per_call
-    if per_call != [K6_PER_CALL, K6_PER_CALL]:
+        per_call.append((int8_epilogue_kernel.launches, int8_conv_kernel.launches))
+    out["int8_epilogue_launches_per_predict_batch"] = [k6 for k6, _ in per_call]
+    out["int8_conv_launches_per_predict_batch"] = [k7 for _, k7 in per_call]
+    if per_call != [(K6_PER_CALL, K7_PER_CALL)] * 2:
         emit(out)
-        raise AssertionError(f"K6 launched {per_call} times per predict_batch at B = 8 and "
-                             f"128, not {K6_PER_CALL}")
+        raise AssertionError(f"K6 and K7 launched {per_call} times per predict_batch at B = 8 "
+                             f"and 128, not {K6_PER_CALL} and {K7_PER_CALL}")
 
     # one image through the int8 forward on the card and the port's int8
     # CPU forward from the same qparams (f32 heads): the s8 trunk codes
@@ -3164,6 +3304,7 @@ def main() -> int:
     k4 = phase_k4(dev, np.random.default_rng(SEED))
     k5 = phase_k5(dev)
     k6 = phase_k6(dev)
+    k7 = phase_k7(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
@@ -3244,6 +3385,11 @@ def main() -> int:
          "source": "yolo_for_turbines_tpu_torch/csrc/epilogue.cu", "replaces": None,
          "launches_by_path": {"main_int8_per_predict_batch": K6_PER_CALL},
          **k6},
+        # replaces no TPU kernel: XLA ran the int8 convs as int32 convolutions
+        {"name": "int8_conv", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/conv_int8.cu", "replaces": None,
+         "launches_by_path": {"main_int8_per_predict_batch": K7_PER_CALL},
+         **k7},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,8 +34,9 @@ def test_profile_predict_batch_on_cpu(int8):
     assert summary["wall_ms"] > 0
     assert summary["device_busy_ms"] == 0 and summary["idle_share"] == 1.0
     assert summary["top"] == []
-    # the int8 forward opens a span round every conv's epilogue
-    assert sorted(summary["host_ms"]) == ["int8.epilogue"] * int8 + [
+    # the int8 forward opens a span round every conv's product and one round
+    # its epilogue
+    assert sorted(summary["host_ms"]) == ["int8.conv", "int8.epilogue"] * int8 + [
         "predict_batch", "predict_batch.forward", "predict_batch.input",
         "predict_batch.postprocess"]
     assert all(v > 0 for v in summary["host_ms"].values())

@@ -1,5 +1,5 @@
 // What the wgmma + TMA kernels of this directory share (resblock.cu,
-// resblock_int8.cu): mbarriers, the cluster barrier and distributed shared
+// resblock_int8.cu, conv_int8.cu): mbarriers, the cluster barrier and distributed shared
 // memory, TMA tile loads and stores, the shared-memory operand descriptor of
 // wgmma in the 128-byte swizzle, and the host-side tensor-map encoder.
 // Needs sm_90a. Everything is inlined or has internal linkage, so each
@@ -130,6 +130,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
         : "memory");
 }
 
+// An im2col box of an NHWC tensor seen as 4-D (channel, x, y, image): the
+// tensor map's pixels-per-column pixels from the filter origin (x, y, img),
+// walked in (x, y, image) order at the map's traversal strides inside its
+// bounding box, each read at the offset (dx, dy) of one filter tap; out of
+// bounds reads as zero.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst, const CUtensorMap* map, int c, int x,
+                                                   int y, int img, uint16_t dx, uint16_t dy,
+                                                   uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(img),
+        "r"(smem_u32(bar)), "h"(dx), "h"(dy)
+        : "memory");
+}
+
 // The store counterpart; rows outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c,
                                              int y, int img) {
@@ -182,32 +198,42 @@ __device__ __forceinline__ void pin(int (&d)[N]) {
 // ---- host side -------------------------------------------------------------
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+using EncodeIm2col = decltype(&cuTensorMapEncodeIm2col);
+
+// A libcuda function by name, through the runtime's entry-point query, or
+// nullptr.
+static inline void* entry_point(const char* name) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
 
 static inline EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-        return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p)
-                   : nullptr;
-    }();
+    static const EncodeTiled fn =
+        reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+    return fn;
+}
+
+static inline EncodeIm2col encode_im2col() {
+    static const EncodeIm2col fn =
+        reinterpret_cast<EncodeIm2col>(entry_point("cuTensorMapEncodeIm2col"));
     return fn;
 }
 
 // A tensor of `rank` dims (dims[0] innermost, contiguous) of `elem_bytes`-wide
 // elements of type `dtype`, read or written in boxes whose inner edge spans
-// 128 bytes (swizzled); out-of-bounds elements read as zero and are not
-// written.
+// the swizzle's width (128 bytes unless given); out-of-bounds elements read
+// as zero and are not written.
 static inline bool encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType dtype,
                           int elem_bytes, const void* ptr, int rank, const uint64_t* dims,
-                          const uint32_t* box) {
+                          const uint32_t* box,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
     cuuint64_t gdims[4], strides[3];
     cuuint32_t gbox[4], elem[4];
     uint64_t stride = elem_bytes;
@@ -219,8 +245,7 @@ static inline bool encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType 
         stride *= dims[i];
     }
     return fn(map, dtype, rank, const_cast<void*>(ptr), gdims, strides, gbox, elem,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -7,10 +7,11 @@ recipe and the same quantized tree:
   numpy code, so codes and scales are bit-identical);
 - activations: symmetric per-tensor int8, scales calibrated in f32 over a
   representative batch (``calibrate``);
-- compute: s8 x s8 -> i32 products (im2col + ``torch._int_mm``; exact like
-  XLA's int32 convs), then an f32 epilogue of dequant, bias, activation,
-  residual add and requant in the JAX operation order (on CUDA in one pass,
-  kernel K6, ``ops/kernels/int8_epilogue_kernel.py``);
+- compute: s8 x s8 -> i32 products, exact like XLA's int32 convs (on CUDA
+  an implicit GEMM, kernel K7, ``ops/kernels/int8_conv_kernel.py``; else
+  im2col + ``torch._int_mm``), then an f32 epilogue of dequant, bias,
+  activation, residual add and requant in the JAX operation order (on CUDA
+  in one pass, kernel K6, ``ops/kernels/int8_epilogue_kernel.py``);
 - heads run in ``compute_dtype`` from the dequantized trunk;
 - a concat feeding a conv runs as two int8 convs on the split weights,
   dequant-summed with per-branch scales: an upsample concat followed by a
@@ -39,11 +40,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.int8_conv_kernel import apply_int8_conv, int8_conv_reference, kmajor
 from ..ops.kernels.int8_epilogue_kernel import int8_epilogue, int8_epilogue_reference
 from ..ops.kernels.resblock_int8_kernel import (
     KERNEL_C,
     apply_residual_stage_int8_fused,
-    int_mm,
     kmajor_weights,
     pack_int8_stage,
 )
@@ -219,33 +220,28 @@ def _nhwc(t):
     return t.permute(0, 2, 3, 1)
 
 
-def _conv_i8(xq, wmat, kernel: int, stride: int, pad: int, rows=None):
-    """NHWC s8 x ``_wmat`` s8 -> NHWC i32, exact like XLA's int32 conv:
-    im2col in (kh, kw, Cin) order (``unfold`` views, one copy into a buffer
-    whose padding columns are zero), then ``int_mm``. A row shard
-    (``rows``, ``parallel/spatial.py::Rows``) takes its halo rows of codes
-    from its neighbours in place of the row padding (code 0 at the image's
-    edges, as the padding)."""
-    b, h, w, c = xq.shape
-    kp, n = wmat.shape
-    if kernel == 1 and stride == 1 and kp == c:
-        return int_mm(xq.reshape(-1, c), wmat).view(b, h, w, n)
-    if pad and rows is not None and rows.sharded:
-        from ..parallel.spatial import halo
+def _conv_i8(xq, wmat, kernel: int, stride: int, pad: int, rows=None, wk=None,
+             portable: bool = False):
+    """NHWC s8 x ``_wmat`` s8 -> NHWC i32, exact like XLA's int32 conv,
+    inside the span ``int8.conv``. On the card K7 with ``wk``, the K-major
+    copy of ``wmat`` (``int8_conv_kernel.apply_int8_conv``, which launches
+    it or raises); on the CPU and when ``portable``, the plain version:
+    im2col in (kh, kw, Cin) order, then ``int_mm``. A row shard (``rows``,
+    ``parallel/spatial.py::Rows``) takes the plain version with its halo
+    rows of codes from its neighbours in place of the row padding (code 0
+    at the image's edges, as the padding)."""
+    with span("int8.conv"):
+        if rows is not None and rows.sharded:
+            if pad:
+                from ..parallel.spatial import halo
 
-        xq = _nhwc(halo(_nchw(xq), pad, pad if stride == 1 else 0, 0,
-                        rows.layout.space_group))
-        xq = F.pad(xq, (0, 0, pad, pad))
-        b, h, w, c = xq.shape
-    elif pad:
-        xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
-    win = xq.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (B, Ho, Wo, C, kh, kw)
-    ho, wo = win.shape[1], win.shape[2]
-    k = kernel * kernel * c
-    cols = xq.new_empty(b, ho, wo, kp)
-    cols[..., :k].view(b, ho, wo, kernel, kernel, c).copy_(win.permute(0, 1, 2, 4, 5, 3))
-    cols[..., k:].zero_()
-    return int_mm(cols.view(-1, kp), wmat).view(b, ho, wo, n)
+                xq = _nhwc(halo(_nchw(xq), pad, pad if stride == 1 else 0, 0,
+                                rows.layout.space_group))
+                xq = F.pad(xq, (0, 0, pad, pad))
+                pad = 0
+        elif xq.is_cuda and not portable:
+            return apply_int8_conv(xq, wmat, wk, kernel, stride, pad)
+        return int8_conv_reference(xq, wmat, kernel, stride, pad)
 
 
 def _requant(y_f, s_out):
@@ -273,11 +269,11 @@ def residual_blocks_int8(xq, blocks, activation: str = "leaky_relu", rows=None,
     the fused kernel is not routed to): per block an int8 1x1 and 3x3 conv,
     each with its f32 epilogue. ``blocks`` from :func:`pack_int8_blocks`."""
     for bq in blocks:
-        t1 = _epilogue(_conv_i8(xq, bq["w1"], 1, 1, 0), bq["d1"], bq["b1"], bq["s1"],
-                       activation, portable=portable)
+        t1 = _epilogue(_conv_i8(xq, bq["w1"], 1, 1, 0, wk=bq["w1k"], portable=portable),
+                       bq["d1"], bq["b1"], bq["s1"], activation, portable=portable)
         res = (xq, bq["rs"]) if bq["rs"] is not None else None
-        xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1, rows), bq["d2"], bq["b2"], bq["s2"],
-                       activation, residual=res, portable=portable)
+        xq = _epilogue(_conv_i8(t1, bq["w2"], 3, 1, 1, rows, bq["w2k"], portable), bq["d2"],
+                       bq["b2"], bq["s2"], activation, residual=res, portable=portable)
     return xq
 
 
@@ -295,36 +291,53 @@ def _head_weights(p, compute_dtype):
             "w2": oihw(p["conv2"]["w"]), "b2": p["conv2"]["b"].to(compute_dtype)}
 
 
-def pack_int8_blocks(blocks_q, s_in, s1_list, s2_list, use_residual: bool) -> list:
+def _kmajor(wmat, cin: int, kernel: int, portable: bool):
+    """K7's K-major copy of a layer-path weight; None in a ``portable``
+    pack, whose forward runs no kernel (the exported program traces the
+    packing, so a copy there would run in every call)."""
+    return None if portable else kmajor(wmat, cin, kernel)
+
+
+def pack_int8_blocks(blocks_q, s_in, s1_list, s2_list, use_residual: bool,
+                     portable: bool = False) -> list:
     """Per-block operands of the layer-by-layer path
-    (:func:`residual_blocks_int8`): ``_wmat`` weights, ``d = s_in * s_w``
-    rows, and each block's mid/out/residual scales. ``blocks_q`` is in the
-    ``_q_blocks`` layout; the scales are f32 0-dim tensors."""
+    (:func:`residual_blocks_int8`): ``_wmat`` weights and their K-major
+    copies, which K7 reads (``_kmajor``), ``d = s_in * s_w`` rows, and each
+    block's mid/out/residual scales. ``blocks_q`` is in the ``_q_blocks`` layout;
+    the scales are f32 0-dim tensors."""
     out, s_x = [], s_in
     for bp, s1_out, s2_out in zip(blocks_q, s1_list, s2_list):
+        w1, w2 = _wmat(bp["w1q"]), _wmat(bp["w2q"])
         out.append({
-            "w1": _wmat(bp["w1q"]), "d1": s_x * bp["s1"], "b1": bp["b1"], "s1": s1_out,
-            "w2": _wmat(bp["w2q"]), "d2": s1_out * bp["s2"], "b2": bp["b2"], "s2": s2_out,
+            "w1": w1, "d1": s_x * bp["s1"], "b1": bp["b1"], "s1": s1_out,
+            "w2": w2, "d2": s1_out * bp["s2"], "b2": bp["b2"], "s2": s2_out,
             "rs": s_x if use_residual else None,
+            "w1k": _kmajor(w1, bp["w1q"].shape[2], 1, portable),
+            "w2k": _kmajor(w2, bp["w2q"].shape[2], 3, portable),
         })
         s_x = s2_out
     return out
 
 
-def _pack_conv(p, kernel: int, stride: int, s_in, s_out, split=None) -> dict:
+def _pack_conv(p, kernel: int, stride: int, s_in, s_out, split=None,
+               portable: bool = False) -> dict:
     """A quantized conv's layer-path operands: ``_wmat`` weights (views of
-    ``p["wq"]`` where no padding is needed), ``d = s_in * s_w`` rows, bias
-    and output scale. ``split = (Ca, s_a, s_b)`` splits the weights at input
-    channel Ca for two int8 convs on the branches of a concat, with rows
-    ``da = s_a * s_w`` and ``db = s_b * s_w``."""
+    ``p["wq"]`` where no padding is needed) and their K-major copies, which
+    K7 reads (``_kmajor``), under the same key with a ``k`` after it, ``d =
+    s_in * s_w`` rows, bias and output scale. ``split = (Ca, s_a, s_b)`` splits the
+    weights at input channel Ca for two int8 convs on the branches of a
+    concat, with rows ``da = s_a * s_w`` and ``db = s_b * s_w``."""
     q = {"kernel": kernel, "stride": stride, "pad": 1 if kernel == 3 else 0, "b": p["b"],
          "s_out": s_out}
     if split is None:
         q["w"], q["d"] = _wmat(p["wq"]), s_in * p["sw"]
+        q["wk"] = _kmajor(q["w"], p["wq"].shape[2], kernel, portable)
     else:
         ca, s_a, s_b = split
         q["wa"], q["wb"] = _wmat(p["wq"][:, :, :ca]), _wmat(p["wq"][:, :, ca:])
         q["da"], q["db"] = s_a * p["sw"], s_b * p["sw"]
+        q["wak"] = _kmajor(q["wa"], ca, kernel, portable)
+        q["wbk"] = _kmajor(q["wb"], p["wq"].shape[2] - ca, kernel, portable)
     return q
 
 
@@ -334,21 +347,26 @@ def _run_conv(q, xq, activation: str, xb=None, rows=None, portable: bool = False
     convs dequant-summed in one epilogue."""
     geom = q["kernel"], q["stride"], q["pad"], rows
     if xb is None:
-        return _epilogue(_conv_i8(xq, q["w"], *geom), q["d"], q["b"], q["s_out"], activation,
-                         portable=portable)
-    return _epilogue(_conv_i8(xq, q["wa"], *geom), q["da"], q["b"], q["s_out"], activation,
-                     extra=(_conv_i8(xb, q["wb"], *geom), q["db"]), portable=portable)
+        return _epilogue(_conv_i8(xq, q["w"], *geom, q["wk"], portable), q["d"], q["b"],
+                         q["s_out"], activation, portable=portable)
+    return _epilogue(_conv_i8(xq, q["wa"], *geom, q["wak"], portable), q["da"], q["b"],
+                     q["s_out"], activation,
+                     extra=(_conv_i8(xb, q["wb"], *geom, q["wbk"], portable), q["db"]),
+                     portable=portable)
 
 
-def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool = True) -> list:
+def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool = True,
+              portable: bool = False) -> list:
     """Walk the plan once over ``qparams`` and fold the calibrated scale
     chain into per-entry operands: ``d = s_in * s_w`` rows and 0-dim scale
     tensors for the layer path (weights as views of ``qparams``' where no
     padding is needed), K4's stacked operands and its K-major weight copies
     for every ``use_residual`` stage whose channel count the kernel takes
     (C = 512: one stage of Darknet-53; None elsewhere, CSP blocks
-    included, and everywhere with ``kernel_operands=False``), head weights
-    in ``compute_dtype``. Nothing here depends on the image size: each
+    included, and everywhere with ``kernel_operands=False`` or
+    ``portable``), the K-major copy of every layer-path weight, which K7
+    reads (None when ``portable``: the pack of the portable forward, which
+    runs no kernel), head weights in ``compute_dtype``. Nothing here depends on the image size: each
     call of ``apply_inference_int8`` routes such a
     stage to K4 or to the layer path on its own shape, as the JAX function
     does. The scales are drawn in the JAX function's order and its f32
@@ -371,18 +389,20 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool
             if pending is not None:
                 (s_a, s_b), ca = pending
                 pending = None
-                q = _pack_conv(p, entry.kernel, entry.stride, None, s_out, split=(ca, s_a, s_b))
+                q = _pack_conv(p, entry.kernel, entry.stride, None, s_out, split=(ca, s_a, s_b),
+                               portable=portable)
             else:
-                q = _pack_conv(p, entry.kernel, entry.stride, s_x, s_out)
+                q = _pack_conv(p, entry.kernel, entry.stride, s_x, s_out, portable=portable)
             s_x = s_out
         elif isinstance(entry, PlanResidual):
             # the stream interleaves (s1, s2) per block
             pairs = [(scale(), scale()) for _ in p["blocks"]]
             s1_list, s2_list = [a for a, _ in pairs], [b for _, b in pairs]
-            fusable = kernel_operands and entry.use_residual and entry.channels == KERNEL_C
+            fusable = (kernel_operands and not portable and entry.use_residual
+                       and entry.channels == KERNEL_C)
             stage = pack_int8_stage(p["blocks"], s_x, s1_list, s2_list) if fusable else None
             q = {"blocks": pack_int8_blocks(p["blocks"], s_x, s1_list, s2_list,
-                                            entry.use_residual),
+                                            entry.use_residual, portable),
                  "stage": stage,
                  # the K-major weights K4 reads, made here once per model
                  "stage_kmajor": kmajor_weights(stage[0], stage[4]) if fusable else None}
@@ -393,19 +413,19 @@ def pack_int8(plan, qparams, compute_dtype=torch.bfloat16, kernel_operands: bool
             # the JAX stream: split1, split2, (s1, s2) per block,
             # transition, fuse
             s_sc = scale()
-            q = {"split1": _pack_conv(p["split1"], 1, 1, s_x, s_sc)}
+            q = {"split1": _pack_conv(p["split1"], 1, 1, s_x, s_sc, portable=portable)}
             s_y = scale()
-            q["split2"] = _pack_conv(p["split2"], 1, 1, s_x, s_y)
+            q["split2"] = _pack_conv(p["split2"], 1, 1, s_x, s_y, portable=portable)
             pairs = [(scale(), scale()) for _ in p["blocks"]]
             q["blocks"] = pack_int8_blocks(p["blocks"], s_y, [a for a, _ in pairs],
-                                           [b for _, b in pairs], use_residual=True)
+                                           [b for _, b in pairs], True, portable)
             s_y = pairs[-1][1] if pairs else s_y
             s_t = scale()
-            q["transition"] = _pack_conv(p["transition"], 1, 1, s_y, s_t)
+            q["transition"] = _pack_conv(p["transition"], 1, 1, s_y, s_t, portable=portable)
             s_x = scale()
             # fuse reads [transition output, shortcut] as two branches
             q["fuse"] = _pack_conv(p["fuse"], 1, 1, None, s_x,
-                                   split=(entry.branch_ch, s_t, s_sc))
+                                   split=(entry.branch_ch, s_t, s_sc), portable=portable)
             if entry.save_route:
                 routes.append(s_x)
         elif isinstance(entry, PlanHead):
@@ -454,7 +474,7 @@ def apply_inference_int8(
     runs no kernel (each conv's epilogue the plain composition, not K6):
     the hermetic serve module (``serving.py``) is traced through it.
     ``packed`` is ``pack_int8(plan, qparams, compute_dtype)``, made here
-    when not given (without K4's operands when portable).
+    when not given (with no kernel's operands when portable).
     ``head_inputs``, when a list, receives per head the s8 trunk tensors it
     reads (two for a concat head), so a caller can check what the int8
     trunk decided. ``layout`` (``parallel/spatial.py::Layout``) runs the
@@ -465,7 +485,7 @@ def apply_inference_int8(
     if layout is not None:
         portable = True
     if packed is None:
-        packed = pack_int8(plan, qparams, compute_dtype, kernel_operands=not portable)
+        packed = pack_int8(plan, qparams, compute_dtype, portable=portable)
 
     def relay(fn, t, rows, *args):
         """A layout step of ``layout`` on an NHWC tensor."""

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "conv_epilogue_launch": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
     # y, yb, res, q, d, db, bias, s_out, rs, rows, C, act, stream
     "int8_epilogue_launch": ([_P] * 9 + [ctypes.c_longlong, _I, _I, _P], _I),
+    # x, w, out, batch, H, W, C, cout, kernel, stride, stream
+    "int8_conv_launch": ([_P] * 3 + [_I] * 7 + [_P], _I),
 }
 
 
