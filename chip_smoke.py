@@ -274,24 +274,30 @@ HEAD_RTOL_F32 = 1e-6
 K4_MISH_MAX_CODES = 1
 K4_MISH_MAX_FRAC = 0.01
 # K5 (the folded conv's epilogue) against its plain version, which runs the
-# same f32 operations and rounds once: leaky and identity equal bit for bit;
+# same f32 operations and rounds once: leaky, silu (torch's CUDA silu,
+# x / (1 + expf(-x))) and identity equal bit for bit;
 # with mish the kernel's tanhf/log1pf/expf may differ from torch's CUDA mish
 # by an ulp, which moves the bf16 result by at most one step at a tie.
 K5_MISH_MAX_FRAC = 0.01
 # K5 launches per bf16 Darknet-53 predict_batch at 416px: every folded conv
 # outside the 26x26x512 stage, which K2 runs
 K5_PER_CALL = 59
-# K5's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, activation,
-# skip) of the stem conv, the first downsample, a 52x52 residual block's 3x3
-# (the block's input added) and the 13x13 head's 1x1
+# K5's timed shapes at B = 128: (H = W, C, activation, skip) of Darknet-53's
+# stem conv at 416px, its first downsample, a 52x52 residual block's 3x3
+# (the block's input added) and the 13x13 head's 1x1, and a 160x160x128
+# SiLU conv of YOLOv7 at 640px (its second ELAN's widest)
 K5_TIMED = ((416, 32, "leaky_relu", False), (208, 64, "leaky_relu", False),
-            (52, 256, "leaky_relu", True), (13, 255, "identity", False))
+            (52, 256, "leaky_relu", True), (13, 255, "identity", False),
+            (160, 128, "silu", False))
 # K5 checked besides at B = 2: every width the models give it, the heads'
 # odd ones, widths whose channel period passes a block's 256 threads, and
 # sizes that leave a scalar tail (B * H * W * C % 8 != 0)
 K5_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
               (13, 13, 1024), (13, 13, 255), (5, 7, 255), (3, 5, 21), (2, 3, 3), (3, 3, 1),
               (2, 2, 2056), (3, 1, 1023))
+# K5 launches per bf16 YOLOv7 predict_batch at 640px: every one of its 92
+# folded convs (89 under SiLU, the heads' three 1x1s identity)
+K5_PER_CALL_YOLOV7 = 92
 # K6 launches per int8 Darknet-53 predict_batch at 416px (any B): every int8
 # conv outside K4's 26x26x512 stage and the heads (bf16)
 K6_PER_CALL = 53
@@ -849,9 +855,9 @@ def k5_check(y, bias, activation, skip, what, out):
 
 
 def phase_k5(dev):
-    """K5 against its plain version at every width the models give it (both
-    activations, identity, with and without a skip; a misaligned view takes
-    the one-element variant), then its time at Darknet-53's B = 128 shapes
+    """K5 against its plain version at every width the models give it (the
+    three activations, identity, with and without a skip; a misaligned view
+    takes the one-element variant), then its time at B = 128 shapes
     beside its byte bound, the plain version and the composition of aten
     ops it replaced (the conv's bias add, the activation, ``skip + y``)."""
     from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
@@ -860,7 +866,7 @@ def phase_k5(dev):
     out = {"phase": "k5", "kernel": "conv_epilogue", "checks": []}
     ek.launches = 0
     for h, w, c in K5_CHECKED:
-        for activation in ("leaky_relu", "mish", "identity"):
+        for activation in ("leaky_relu", "mish", "identity", "silu"):
             for with_skip in (False, True):
                 y, bias, skip = k5_inputs(2, h, w, c, gen, dev, with_skip)
                 k5_check(y, bias, activation, skip, f"2x{h}x{w}x{c}", out)
@@ -878,7 +884,10 @@ def phase_k5(dev):
 
     def composition(y, bias, activation, skip):
         y = y.add_(bias[:, None, None])  # what F.conv2d's cuDNN path does
-        y = torch.nn.functional.leaky_relu(y, 0.1) if activation == "leaky_relu" else y
+        if activation == "leaky_relu":
+            y = torch.nn.functional.leaky_relu(y, 0.1)
+        elif activation == "silu":
+            y = torch.nn.functional.silu(y)
         return y if skip is None else skip + y
 
     rows = []
@@ -1241,6 +1250,56 @@ def phase_main(dev):
         raise AssertionError(f"raw heads differ from the f32 CPU forward: {errs}")
     return (launches, out["pairwise_iou_launches"],
             {k: v for k, v in out.items() if k.endswith("_images_per_s")}, (x1, cpu_heads))
+
+
+def phase_yolov7(dev):
+    """YOLOv7 at 640px (80 classes, seeded folded weights) served in bf16:
+    K5 once per conv in each ``predict_batch`` (92), K1 at the end, no K2.
+    The raw heads of one image against the f32 forward on the CPU are
+    printed, not gated: the cell (``perfbench``) holds YOLOv7 to its
+    reference on calibrated weights."""
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+    from yolo_for_turbines_tpu_torch.ops.kernels import (
+        epilogue_kernel,
+        nms_kernel,
+        resblock_kernel,
+    )
+
+    model_cfg = ModelConfig(backbone="yolov7", activation="silu",
+                            strides=cfg.strides_for("yolov7"))
+    plan = build_plan(model_cfg)
+    tree = init_plan(plan, torch.Generator().manual_seed(SEED + 7))
+    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev,
+                     anchors=cfg.YOLOV7_ANCHORS, image_size=640)
+    x = torch.from_numpy(np.random.default_rng(SEED + 7).uniform(
+        size=(8, 640, 640, 3)).astype(np.float32)).to(dev)
+    out = {"phase": "yolov7", "model": "yolov7 deploy form, 80 classes, 640px, bf16"}
+    per_call = []
+    for _ in range(2):
+        epilogue_kernel.launches = nms_kernel.launches = resblock_kernel.launches = 0
+        kept, mask = pred.predict_batch(x)
+        torch.cuda.synchronize()
+        per_call.append({"conv_epilogue": epilogue_kernel.launches,
+                         "greedy_nms": nms_kernel.launches,
+                         "fused_residual_stage": resblock_kernel.launches})
+    out["launches_per_predict_batch"] = per_call
+    require(kept.shape == (8, K, 6) and bool(torch.isfinite(kept).all()),
+            "YOLOv7 predict_batch boxes misshapen or not finite")
+    with torch.inference_mode():
+        dev_heads = pred.model(x[:1])
+        cpu_heads = folded_from_numpy(plan, tree, model_cfg).eval()(x[:1].cpu())
+    errs = [float((d.float().cpu() - c).norm() / c.norm()) for d, c in zip(dev_heads, cpu_heads)]
+    out["head_rel_rms_err"] = errs
+    emit(out)
+    require(all(c["conv_epilogue"] == K5_PER_CALL_YOLOV7 and c["greedy_nms"] >= 1
+                and c["fused_residual_stage"] == 0 for c in per_call),
+            f"YOLOv7 launches per bf16 predict_batch {per_call}: K5 not "
+            f"{K5_PER_CALL_YOLOV7}, no K1, or K2")
+    return per_call[0]["conv_epilogue"]
 
 
 def phase_main_f32(dev, x1, cpu_heads):
@@ -3306,6 +3365,7 @@ def main() -> int:
     k6 = phase_k6(dev)
     k7 = phase_k7(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
+    k5_yolov7 = phase_yolov7(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)
@@ -3378,7 +3438,8 @@ def main() -> int:
         {"name": "conv_epilogue", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/epilogue.cu", "replaces": None,
          "launches_by_path": {"main_per_predict_batch": K5_PER_CALL,
-                              "main_f32": launches_f32["conv_epilogue"]},
+                              "main_f32": launches_f32["conv_epilogue"],
+                              "yolov7_per_predict_batch": k5_yolov7},
          **k5},
         # replaces no TPU kernel: XLA fused the int8 epilogue into its conv
         {"name": "int8_epilogue", "route": "cuda",

@@ -8,7 +8,8 @@ the composition it replaces (three bf16 roundings) is off by up to three
 half steps. The routing leaves every input K5 does not take (CPU, float32,
 NCHW memory, SP) on the composition of separate ops, bit for bit as before.
 The kernel itself runs only on the card: ``chip_smoke.py`` phase k5 holds it
-to the plain version there.
+to the plain version there, and so do the tests marked ``cuda`` here
+(SiLU, YOLOv7's activation), which skip without a card.
 """
 
 import numpy as np
@@ -37,6 +38,7 @@ F64_ACTS = {
     "identity": lambda t: t,
     "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
     "mish": F.mish,
+    "silu": lambda t: t * torch.sigmoid(t),
 }
 
 
@@ -57,7 +59,7 @@ def _half_step(t: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("c", [64, 21, 255])
 @pytest.mark.parametrize("with_skip", [False, True])
-@pytest.mark.parametrize("activation", ["identity", "leaky_relu", "mish"])
+@pytest.mark.parametrize("activation", ["identity", "leaky_relu", "mish", "silu"])
 def test_plain_rounds_once(activation, with_skip, c):
     y = _nhwc((2, c, 3, 5), 1)
     bias = _bf16((c,), 2, 0.5)
@@ -119,7 +121,7 @@ def _folded_conv(cin, cout, kernel, stride, seed, dtype):
     return conv.to(dtype=dtype, memory_format=CL)
 
 
-CASES = [(act, with_skip) for act in (None, tblocks.leaky_relu, tblocks.mish)
+CASES = [(act, with_skip) for act in (None, tblocks.leaky_relu, tblocks.mish, tblocks.silu)
          for with_skip in (False, True)]
 
 
@@ -304,3 +306,37 @@ def test_launcher_is_declared_where_the_library_binds_it():
             'long long rows,') in source
     argtypes, _ = kernels._SIGNATURES["conv_epilogue_launch"]
     assert len(argtypes) == 7 and "epilogue.cu" in {p.name for p in kernels.sources()}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K5 runs only there")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 255, 512, 21])
+@pytest.mark.parametrize("with_skip", [False, True])
+def test_silu_kernel_equals_the_plain_version(card, c, with_skip):
+    """K5 under SiLU against ``conv_epilogue_reference`` on the card (torch's
+    CUDA silu, ``x / (1 + expf(-x))`` in f32): the same bits, as leaky and
+    identity; the 255-channel head width wraps a vector across rows."""
+    y = _nhwc((3, c, 7, 9), 60).to(card)
+    bias = _bf16((c,), 61, 0.5).to(card)
+    skip = _nhwc((3, c, 7, 9), 62).to(card) if with_skip else None
+    before = ek.launches
+    got = ek.conv_epilogue(y.clone(memory_format=CL), bias, "silu", skip)
+    assert ek.launches == before + 1
+    assert torch.equal(got, ek.conv_epilogue_reference(y, bias, "silu", skip))
+
+
+@pytest.mark.cuda
+def test_silu_kernel_on_a_misaligned_view(card):
+    """A view one element into its storage takes the one-element variant."""
+    y = _nhwc((2, 64, 5, 5), 63).to(card)
+    bias = _bf16((64,), 64, 0.5).to(card)
+    base = torch.empty(y.numel() + 8, dtype=torch.bfloat16, device=card)
+    view = base[1:y.numel() + 1].view(2, 5, 5, 64).permute(0, 3, 1, 2).copy_(y)
+    got = ek.conv_epilogue(view, bias, "silu")
+    assert torch.equal(got, ek.conv_epilogue_reference(y, bias, "silu"))

@@ -54,6 +54,14 @@ YOLOV4_ANCHORS = (
     ((142 / 608, 110 / 608), (192 / 608, 243 / 608), (459 / 608, 401 / 608)),
 )
 
+# yolov7.yaml's anchors (YOLOv4's nine, in pixels / 640), finest scale
+# (stride 8) first: the order of YOLOv7's heads
+YOLOV7_ANCHORS = (
+    ((12 / 640, 16 / 640), (19 / 640, 36 / 640), (40 / 640, 28 / 640)),
+    ((36 / 640, 75 / 640), (76 / 640, 55 / 640), (72 / 640, 146 / 640)),
+    ((142 / 640, 110 / 640), (192 / 640, 243 / 640), (459 / 640, 401 / 640)),
+)
+
 STRIDES = (32, 16, 8)
 
 TURBINE_LABELS = ("dirt", "damage")
@@ -86,8 +94,9 @@ def grid_sizes_for(image_size: int, strides: Sequence[int] = STRIDES) -> tuple:
 def strides_for(backbone: str) -> tuple:
     """Output strides of a backbone's heads: two scales for ``yolov3_tiny``,
     three for the others (as the JAX package's ``load_predictor`` sets
-    them), finest first for ``yolov4``."""
-    return {"yolov3_tiny": (32, 16), "yolov4": (8, 16, 32)}.get(backbone, STRIDES)
+    them), finest first for ``yolov4`` and ``yolov7``."""
+    return {"yolov3_tiny": (32, 16), "yolov4": (8, 16, 32),
+            "yolov7": (8, 16, 32)}.get(backbone, STRIDES)
 
 
 def anchors_array(anchors=ANCHORS) -> np.ndarray:
@@ -145,8 +154,9 @@ class ModelConfig:
 
     num_classes: int = NUM_COCO_CLASSES
     in_channels: int = 3
-    activation: str = "leaky_relu"  # or "mish"
-    backbone: str = "darknet53"  # or "cspdarknet53", "yolov3_tiny" or "yolov4"
+    activation: str = "leaky_relu"  # or "mish", or "silu" (YOLOv7)
+    # or "cspdarknet53", "yolov3_tiny", "yolov4" or "yolov7"
+    backbone: str = "darknet53"
     anchors_per_scale: int = 3
     # Output stride per detection scale, coarsest first.
     strides: tuple = (32, 16, 8)

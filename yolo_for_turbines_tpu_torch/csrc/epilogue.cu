@@ -1,7 +1,7 @@
 // The epilogue of a folded conv in one pass, in place on the conv's bf16
 // output y (NHWC memory: rows = B*H*W, C channels):
 //     y[r, c] = bf16(skip[r, c] + act(float(y[r, c]) + float(bias[c])))
-// with act identity, leaky_relu(0.1) or mish, and skip optional.
+// with act identity, leaky_relu(0.1), mish or silu, and skip optional.
 //
 // Replaces no TPU kernel: on the TPU, XLA fused the bias, the activation
 // and the residual add into its convolution. On the card cuDNN computes the
@@ -31,7 +31,8 @@
 // Exactness: the f32 operations of the plain torch version in its order,
 // with _rn intrinsics so that nvcc contracts no multiply and add into an
 // FMA; leaky and identity equal it bit for bit; mish calls tanhf, log1pf
-// and expf, as torch's CUDA mish does.
+// and expf, as torch's CUDA mish does; silu is torch's CUDA silu, x / (1 +
+// expf(-x)) with an IEEE division (no fast math on either side).
 //
 // K6, further down, is the same pass for an int8 conv (models/quantize.py):
 // from the conv's i32 output to the next layer's s8 codes.
@@ -47,12 +48,13 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // vectors in flight per thread
 constexpr int kMaxDevices = 64;
 
-enum Act { kIdentity = 0, kLeaky = 1, kMish = 2 };
+enum Act { kIdentity = 0, kLeaky = 1, kMish = 2, kSilu = 3 };
 
 template <int kAct>
 __device__ __forceinline__ float activate(float t) {
     if (kAct == kLeaky) return t > 0.f ? t : __fmul_rn(t, 0.1f);
     if (kAct == kMish) return __fmul_rn(t, tanhf(log1pf(expf(t))));
+    if (kAct == kSilu) return __fdiv_rn(t, __fadd_rn(1.f, expf(-t)));
     return t;
 }
 
@@ -195,6 +197,7 @@ int launch_act(void* y, const void* bias, const void* skip, long long n, int c, 
         case kIdentity: return launch_skip<kVec, kIdentity>(y, bias, skip, n, c, s);
         case kLeaky: return launch_skip<kVec, kLeaky>(y, bias, skip, n, c, s);
         case kMish: return launch_skip<kVec, kMish>(y, bias, skip, n, c, s);
+        case kSilu: return launch_skip<kVec, kSilu>(y, bias, skip, n, c, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -419,7 +422,7 @@ int launch_int8_act(const Int8EpilogueArgs& a, int act, cudaStream_t s) {
 }  // namespace
 
 // y (rows, C) bf16, written in place; bias (C,) bf16; skip (rows, C) bf16 or
-// null, not overlapping y; act 0 identity, 1 leaky_relu(0.1), 2 mish.
+// null, not overlapping y; act 0 identity, 1 leaky_relu(0.1), 2 mish, 3 silu.
 // 16-byte vectors when y and skip are 16-byte aligned, one element at a
 // time otherwise. Returns cudaGetLastError().
 extern "C" int conv_epilogue_launch(void* y, const void* bias, const void* skip, long long rows,

@@ -14,12 +14,14 @@ path) and NMS runs the fused greedy kernel (``ops/kernels/nms_kernel.py``).
 forward, whose 26x26x512 residual stage on CUDA is the fused int8 kernel
 (``ops/kernels/resblock_int8_kernel.py``), and the same decode and NMS.
 
-Every family serves: Darknet-53, CSPDarknet-53, YOLOv3-tiny (two scales)
-and YOLOv4 (``backbone="yolov4"``, heads finest first, each scale's
-``scale_xy`` decoded from the plan's heads); CSP, tiny and YOLOv4 have no
-stage the fused residual kernels take, and run K5 and K1 alone. YOLOv4
-serves in bf16 and float32 without a mesh: ``quantize`` and spatial
-partitioning raise on its plan. ``load_predictor`` builds a predictor from a darknet weight file,
+Every family serves: Darknet-53, CSPDarknet-53, YOLOv3-tiny (two scales),
+YOLOv4 (``backbone="yolov4"``, heads finest first, each scale's
+``scale_xy`` decoded from the plan's heads) and YOLOv7
+(``backbone="yolov7"``, the same, and each head's squared-size decode
+from the plan); CSP, tiny, YOLOv4 and YOLOv7 have no stage the fused
+residual kernels take, and run K5 and K1 alone. YOLOv4 and YOLOv7 serve
+in bf16 and float32 without a mesh: ``quantize`` and spatial partitioning
+raise on their plans (``models/yolov3.py::refuse_walk_only``). ``load_predictor`` builds a predictor from a darknet weight file,
 ``load_predictor_from_checkpoint`` from a checkpoint of the port's
 trainer; both run on ``device``, ``"cuda"`` unless the caller asks for the
 CPU, and raise without a card.
@@ -64,7 +66,7 @@ from .config import ModelConfig
 from .data.augment import letterbox, unletterbox_boxes
 from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
-from .models.yolov3 import FoldedYOLOv3, PlanHead, YOLOv3, build_plan, has_yolov4_entries
+from .models.yolov3 import FoldedYOLOv3, PlanHead, YOLOv3, build_plan, refuse_walk_only
 from .ops.decode import decode_raw_all
 from .ops.nms import batched_nms, nms_to_list
 from .parallel import comm
@@ -139,8 +141,13 @@ class Predictor:
         self.anchors = np.asarray(anchors, np.float32)
         # each head's scale_xy (PlanGridHead's, 1.0 for a YOLOv3 head), in
         # the heads' order; None when all are 1.0
-        scale_xy = tuple(e.scale_xy for e in model.plan if isinstance(e, PlanHead))
+        heads = [e for e in model.plan if isinstance(e, PlanHead)]
+        scale_xy = tuple(e.scale_xy for e in heads)
         self.scale_xy = None if all(a == 1.0 for a in scale_xy) else scale_xy
+        # each head's size decode (PlanRepHead's "square", else "exp"); None
+        # when all are "exp"
+        size_decode = tuple(e.size_decode for e in heads)
+        self.size_decode = None if all(m == "exp" for m in size_decode) else size_decode
         self.image_size = image_size
         self.conf_threshold = conf_threshold
         self.nms_iou_threshold = nms_iou_threshold
@@ -187,9 +194,8 @@ class Predictor:
         scales on ``calib_batch`` ((N, S, S, 3) in [0, 1]) in f32 on the
         predictor's device from the full-precision folded tree, quantize the
         weights, and pack the serving operands once. Returns self."""
-        if has_yolov4_entries(self.model.plan):
-            raise ValueError("int8 PTQ does not take a YOLOv4 plan (SPP, named routes); "
-                             "serve it in bf16 or float32")
+        refuse_walk_only(self.model.plan, "int8 PTQ",
+                         "no int8 path of these entries is ported; serve it in bf16 or float32")
         x = torch.as_tensor(calib_batch, dtype=torch.float32).to(self.device)
         self.set_qparams(quantize_folded(
             self.model.plan, self.full_precision_tree(), x, self.model.cfg.activation))
@@ -255,7 +261,8 @@ class Predictor:
                 raw = self._heads(x)
             with span("predict_batch.postprocess"):
                 boxes = decode_raw_all(
-                    raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes, self.scale_xy
+                    raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes, self.scale_xy,
+                    self.size_decode,
                 )
                 kept, mask = batched_nms(
                     boxes,

@@ -30,10 +30,15 @@ def mish(x):
     return F.mish(x)
 
 
-ACTIVATIONS = {"leaky_relu": leaky_relu, "mish": mish}
+def silu(x):
+    return F.silu(x)
+
+
+ACTIVATIONS = {"leaky_relu": leaky_relu, "mish": mish, "silu": silu}
 # the activation name kernel K5 (``conv_epilogue``) takes for each function
 # a folded conv may be given; None is a head's last 1x1
-EPILOGUE_ACTIVATIONS = {None: "identity", leaky_relu: "leaky_relu", mish: "mish"}
+EPILOGUE_ACTIVATIONS = {None: "identity", leaky_relu: "leaky_relu", mish: "mish",
+                        silu: "silu"}
 
 
 def get_activation(name: str):
@@ -92,13 +97,12 @@ class ConvBlock(nn.Module):
         # symmetric padding with floor sizes, as the JAX conv's explicit pad
         self.conv = nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, kernel, stride,
                                        padding=1 if kernel == 3 else 0, bias=not bn)
-        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM) if bn else None
-        bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+        self.bn = _bn(out_ch) if bn else None
+        fan_in = in_ch * kernel * kernel
         with torch.no_grad():
-            self.conv.weight.copy_(
-                (torch.rand(self.conv.weight.shape, generator=generator) * 2 - 1) * bound)
+            self.conv.weight.copy_(_uniform(self.conv.weight.shape, fan_in, generator))
             if not bn:
-                self.conv.bias.copy_((torch.rand(out_ch, generator=generator) * 2 - 1) * bound)
+                self.conv.bias.copy_(_uniform(out_ch, fan_in, generator))
 
     def forward(self, x, act=None, rows=None, skip=None):
         """``rows`` (``parallel/spatial.py::Rows``) runs the conv with its
@@ -124,6 +128,119 @@ class ConvBlock(nn.Module):
         return fold_conv_bn(
             {"w": w, "scale": self.bn.weight.detach(), "bias": self.bn.bias.detach()},
             {"mean": self.bn.running_mean, "var": self.bn.running_var})
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """The block's parameters under the JAX tree's keys (``w`` OIHW, then
+        ``b`` without BN or ``scale`` and ``bias`` with it), which
+        ``models/convert.py``'s bridges read and write."""
+        if self.bn is None:
+            return {"w": self.conv.weight, "b": self.conv.bias}
+        return {"w": self.conv.weight, "scale": self.bn.weight, "bias": self.bn.bias}
+
+    def stat_leaves(self) -> Optional[Dict[str, torch.Tensor]]:
+        """Its BN's running statistics under the JAX tree's keys; None
+        without BN."""
+        if self.bn is None:
+            return None
+        return {"mean": self.bn.running_mean, "var": self.bn.running_var}
+
+
+def _uniform(shape, fan_in: int, generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(fan_in)
+    return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class RepConvBlock(ConvBlock):
+    """YOLOv7's RepConv in its training form: ``act(BN(conv3x3(x)) +
+    BN(conv1x1(x)) [+ BN(x)])``, the identity branch where ``in_ch ==
+    out_ch`` and the stride is 1. ``conv`` / ``bn`` are the 3x3 branch's
+    (``ConvBlock``'s own), ``conv1x1`` / ``bn1x1`` the 1x1's, ``bn_id`` the
+    identity's. ``folded()`` re-parameterises it into one 3x3 conv: each
+    branch's BN folded into its kernel, the 1x1 kernel zero-padded into the
+    3x3's centre, the identity a 3x3 kernel with a 1 at the centre of its own
+    channel, the kernels and biases summed; the folded model's conv is then
+    a plain 3x3 (``FoldedConv``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, 3, stride, generator=generator)
+        self.conv1x1 = nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, 1, stride, bias=False)
+        self.bn1x1 = _bn(out_ch)
+        self.bn_id = _bn(in_ch) if in_ch == out_ch and stride == 1 else None
+        with torch.no_grad():
+            self.conv1x1.weight.copy_(_uniform(self.conv1x1.weight.shape, in_ch, generator))
+
+    def forward(self, x, act=None, rows=None):
+        if rows is not None:
+            raise ValueError("RepConv takes no rows: a YOLOv7 plan has no SP")
+        y = self.bn(self.conv(x)) + self.bn1x1(self.conv1x1(x))
+        if self.bn_id is not None:
+            y = y + self.bn_id(x)
+        return act(y) if act is not None else y
+
+    def folded(self) -> Dict:
+        main = super().folded()
+
+        def fold(w, bn):
+            return fold_conv_bn(
+                {"w": w, "scale": bn.weight.detach(), "bias": bn.bias.detach()},
+                {"mean": bn.running_mean, "var": bn.running_var})
+
+        side = fold(self.conv1x1.weight.detach(), self.bn1x1)
+        w, b = main["w"] + F.pad(side["w"], (1, 1, 1, 1)), main["b"] + side["b"]
+        if self.bn_id is not None:
+            c = w.shape[0]
+            eye = torch.zeros_like(w)
+            eye[torch.arange(c), torch.arange(c), 1, 1] = 1.0
+            ident = fold(eye, self.bn_id)
+            w, b = w + ident["w"], b + ident["b"]
+        return {"w": w, "b": b}
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        out = {**super().leaves(), "w1x1": self.conv1x1.weight, "scale1x1": self.bn1x1.weight,
+               "bias1x1": self.bn1x1.bias}
+        if self.bn_id is not None:
+            out.update(scale_id=self.bn_id.weight, bias_id=self.bn_id.bias)
+        return out
+
+    def stat_leaves(self) -> Dict[str, torch.Tensor]:
+        out = {**super().stat_leaves(), "mean1x1": self.bn1x1.running_mean,
+               "var1x1": self.bn1x1.running_var}
+        if self.bn_id is not None:
+            out.update(mean_id=self.bn_id.running_mean, var_id=self.bn_id.running_var)
+        return out
+
+
+class ImplicitConv(ConvBlock):
+    """YOLOv7's IDetect output conv in its training form: ``m * (conv1x1(x +
+    a) + bias)`` with the learned vectors ``implicit_a`` (ImplicitA, over the
+    input channels, drawn N(0, 0.02)) and ``implicit_m`` (ImplicitM, over
+    the output ones, N(1, 0.02)). ``folded()`` re-parameterises it into one
+    1x1 with a bias: ``w' = m w``, ``b' = m (b + w a)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, 1, bn=False, generator=generator)
+        self.implicit_a = nn.Parameter(0.02 * torch.randn(in_ch, generator=generator))
+        self.implicit_m = nn.Parameter(1 + 0.02 * torch.randn(out_ch, generator=generator))
+
+    def forward(self, x, act=None, rows=None):
+        if rows is not None:
+            raise ValueError("the implicit conv takes no rows: a YOLOv7 plan has no SP")
+        y = self.conv(x + self.implicit_a[:, None, None]) * self.implicit_m[:, None, None]
+        return act(y) if act is not None else y
+
+    def folded(self) -> Dict:
+        w, b = self.conv.weight.detach(), self.conv.bias.detach()
+        a, m = self.implicit_a.detach(), self.implicit_m.detach()
+        return {"w": w * m[:, None, None, None], "b": m * (b + w[:, :, 0, 0] @ a)}
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        return {**super().leaves(), "implicit_a": self.implicit_a,
+                "implicit_m": self.implicit_m}
 
 
 def fold_conv_bn(params: Dict, stats: Dict) -> Dict:

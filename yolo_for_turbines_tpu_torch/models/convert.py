@@ -7,7 +7,9 @@ The JAX trees are plan-aligned lists of ``{"conv": ...}``, ``{"blocks":
 "split2", "blocks", "transition", "fuse"}`` (a CSP stage) and ``{}`` (an
 upsample, max pool or route) entries with HWIO weights. A trainable conv holds ``{w, scale, bias}`` and
 its stats ``{mean, var}``; a head's last 1x1 holds ``{w, b}`` and its stats
-are None. ``fold_params`` (``models/yolov3.py``) gives ``{w, b}`` for every
+are None; each block names its own leaves (``ConvBlock.leaves`` and
+``stat_leaves``: YOLOv7's RepConv and implicit 1x1, which the JAX package
+lacks, add theirs to these). ``fold_params`` (``models/yolov3.py``) gives ``{w, b}`` for every
 conv. Leaves may be numpy arrays (also bf16 ones), torch tensors, or
 anything ``np.asarray`` takes. Both packages then compute the same function
 from the same numbers. ``qparams_to_numpy`` gives the port's int8 tree back
@@ -84,13 +86,16 @@ def folded_to_numpy(model: FoldedYOLOv3) -> list:
 
 @torch.no_grad()
 def _fill_trainable(block: ConvBlock, p, s) -> None:
-    _fill(block.conv, p)
-    if block.bn is None:
-        return
-    block.bn.weight.copy_(_to_f32(p["scale"]))
-    block.bn.bias.copy_(_to_f32(p["bias"]))
-    block.bn.running_mean.copy_(_to_f32(s["mean"]))
-    block.bn.running_var.copy_(_to_f32(s["var"]))
+    """A trainable block's leaves from its params and stats nodes (kernels
+    HWIO)."""
+    for leaves, node in ((block.leaves(), p), (block.stat_leaves() or {}, s)):
+        for k, t in leaves.items():
+            v = _to_f32(node[k])
+            v = v.permute(3, 2, 0, 1) if v.dim() == 4 else v  # HWIO -> OIHW
+            if tuple(v.shape) != tuple(t.shape):
+                what = "weight" if t.dim() == 4 else k
+                raise ValueError(f"{what} {tuple(v.shape)} != module {tuple(t.shape)}")
+            t.copy_(v)
 
 
 def trainable_from_numpy(plan: Plan, params, batch_stats, cfg: ModelConfig, *,
@@ -124,21 +129,15 @@ def trainable_to_numpy(model: YOLOv3):
     trees in the JAX layout (HWIO), numpy float32 copies."""
 
     def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t  # OIHW -> HWIO
         # a copy: .numpy() of a CPU f32 tensor would alias the live weights
-        return t.detach().to("cpu", torch.float32, copy=True).numpy()
+        return t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
 
-    def params(block: ConvBlock) -> dict:
-        w = arr(block.conv.weight.permute(2, 3, 1, 0)).copy()  # OIHW -> HWIO
-        if block.bn is None:
-            return {"w": w, "b": arr(block.conv.bias)}
-        return {"w": w, "scale": arr(block.bn.weight), "bias": arr(block.bn.bias)}
+    def node(leaves):
+        return None if leaves is None else {k: arr(t) for k, t in leaves.items()}
 
-    def stats(block: ConvBlock):
-        if block.bn is None:
-            return None
-        return {"mean": arr(block.bn.running_mean), "var": arr(block.bn.running_var)}
-
-    return conv_trees(model.layers, params), conv_trees(model.layers, stats)
+    return (conv_trees(model.layers, lambda block: node(block.leaves())),
+            conv_trees(model.layers, lambda block: node(block.stat_leaves())))
 
 
 def _leaf(a, device) -> torch.Tensor:

@@ -46,7 +46,7 @@ from .yolov3 import (
     PlanUpsample,
     YOLOv3,
     conv_paths,
-    has_yolov4_entries,
+    refuse_walk_only,
     tree_leaf,
 )
 
@@ -211,14 +211,11 @@ def _expand_flags(p, f, freeze: bool):
 
 
 # the JAX tree's leaf names -> the trainable ConvBlock's parameters
-_LEAF_PARAMS = {"w": "conv.weight", "b": "conv.bias", "scale": "bn.weight", "bias": "bn.bias"}
-
-
 def frozen_parameter_names(model: YOLOv3, frozen_mask) -> List[str]:
     """The ``model.named_parameters()`` names of the leaves that
     ``frozen_mask`` (a :func:`load_darknet_weights` mask) marks frozen, in
     that order."""
-    frozen = {id(block.get_parameter(_LEAF_PARAMS[k]))
+    frozen = {id(block.leaves()[k])
               for i, path, block in conv_paths(model.layers)
               for k, v in tree_leaf(frozen_mask, (i, *path)).items() if v}
     return [name for name, p in model.named_parameters() if id(p) in frozen]
@@ -231,9 +228,8 @@ def load_darknet_into(weights_path: str, model: YOLOv3,
     with ``freeze`` every parameter of a loaded layer, else none."""
     from .convert import load_trainable, trainable_to_numpy
 
-    if has_yolov4_entries(model.plan):
-        raise ValueError("the darknet reader does not take a YOLOv4 plan "
-                         "(yolov4.weights' layer order is not ported)")
+    refuse_walk_only(model.plan, "the darknet reader",
+                     "the layer order of such a weight file is not ported")
     params, stats = trainable_to_numpy(model)
     params, stats, mask, consumed = load_darknet_weights(
         weights_path, model.plan, params, stats, freeze=freeze)

@@ -1,5 +1,5 @@
-"""YOLOv3 (Darknet-53, CSPDarknet-53 or tiny backbone + heads) and YOLOv4
-in PyTorch, trainable and folded.
+"""YOLOv3 (Darknet-53, CSPDarknet-53 or tiny backbone + heads), YOLOv4 and
+YOLOv7 in PyTorch, trainable and folded.
 
 Counterpart of ``yolo_for_turbines_tpu/models/yolov3.py``: the same layer
 DSL and static plan, and two ``nn.Module``s over it:
@@ -23,10 +23,14 @@ bottom-up join (``PlanJoin``, ``[trunk, route]``) and SPP's pools
 (``PlanSPP``); ``PlanActivation`` switches the activation of the convs and
 heads after it. A head is a branch and the trunk continues from the head's
 input; heads come out in the plan's order, which is its ``strides``' order
-(coarsest first for YOLOv3, finest first for YOLOv4). The backbone follows
-``cfg.backbone`` (``cspdarknet53``: ``models/cspdarknet.py``;
-``yolov3_tiny``: ``models/yolov3_tiny.py``; ``yolov4``) unless
-``cfg.layer_config`` is set.
+(coarsest first for YOLOv3, finest first for YOLOv4 and YOLOv7). A YOLOv7
+plan (``YOLOV7_LAYER_CONFIG``, the ``yolov7`` backbone) adds E-ELAN, MP and
+SPPCSPC entries (``models/yolov7.py``) to YOLOv4's named routes, and its
+heads (``PlanRepHead``) decode sizes squared; its trainable heads are
+RepConv and IDetect's implicit 1x1, which ``fold()`` re-parameterises. The
+backbone follows ``cfg.backbone`` (``cspdarknet53``:
+``models/cspdarknet.py``; ``yolov3_tiny``: ``models/yolov3_tiny.py``;
+``yolov4``; ``yolov7``) unless ``cfg.layer_config`` is set.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ from ..utils.profiling import span
 from .blocks import (
     ConvBlock,
     FoldedConv,
+    ImplicitConv,
+    RepConvBlock,
     cat_channels,
     get_activation,
     maxpool2d,
@@ -64,6 +70,7 @@ from .cspdarknet import (
     PlanCSP,
     TrainableCSPStage,
 )
+from .yolov7 import ELAN, ELAN_PICKS, SPPCSPC, MPDown, PlanELAN, PlanMP, PlanSPPCSPC
 
 # Same declarative architecture list as the JAX package (reference:
 # code/model.py:20-45).
@@ -159,6 +166,46 @@ YOLOV4_LAYER_CONFIG = (
     ("head", 1.05),  # stride 32
 )
 
+# YOLOv7 (Wang, Bochkovskiy and Liao, arXiv:2207.02696), layers 0-105 of
+# yolov7.yaml in the deploy form of cfg/deploy/yolov7.yaml: the stem, four
+# ELANs with MP down-sampling between them (C3, C4 saved), SPPCSPC (P5),
+# the top-down path (a lateral 1x1 on C4, then on C3, each concatenated
+# with the upsampled trunk, each followed by an ELAN-H) and the bottom-up
+# path (MP joined with P4, then with P5, each followed by an ELAN-H); heads
+# finest first, each RepConv + IDetect, folded, with the squared-size
+# decode. ``strides=(8, 16, 32)``, ``config.YOLOV7_ANCHORS``, ``silu``.
+YOLOV7_LAYER_CONFIG = (
+    (32, 3, 1),
+    (64, 3, 2),
+    (64, 3, 1),
+    (128, 3, 2),
+    ("elan", 64, 64, 256),
+    ("mp", 128),
+    ("elan", 128, 128, 512),
+    ("save", "c3"),
+    ("mp", 256),
+    ("elan", 256, 256, 1024),
+    ("save", "c4"),
+    ("mp", 512),
+    ("elan", 256, 256, 1024),
+    ("sppcspc", 512),
+    ("save", "p5"),
+    (256, 1, 1),
+    ("lateral", "c4", 256),
+    ("elanh", 256, 128, 256),
+    ("save", "p4"),
+    (128, 1, 1),
+    ("lateral", "c3", 128),
+    ("elanh", 128, 64, 128),
+    ("head", 2.0, "square"),  # stride 8
+    ("mp", 128, "p4"),
+    ("elanh", 256, 128, 256),
+    ("head", 2.0, "square"),  # stride 16
+    ("mp", 256, "p5"),
+    ("elanh", 512, 256, 512),
+    ("head", 2.0, "square"),  # stride 32
+)
+
 
 # ---------------------------------------------------------------------------
 # Plan (static description of the layer sequence)
@@ -194,6 +241,9 @@ class PlanHead:
     # the decode's cell-offset scale, 1.0 for YOLOv3 (no field: the entry's
     # fields are the JAX package's); PlanGridHead's is a field
     scale_xy: ClassVar[float] = 1.0
+    # how the decode reads the size logits: ``exp(t) * anchor``, or
+    # PlanRepHead's ``(2 sigmoid(t))^2 * anchor``
+    size_decode: ClassVar[str] = "exp"
 
     @property
     def mid(self) -> int:
@@ -207,6 +257,19 @@ class PlanGridHead(PlanHead):
     ``scale_x_y``)."""
 
     scale_xy: float = 1.0
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "grid-sensitive heads"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRepHead(PlanGridHead):
+    """A YOLOv7 head: grid-sensitive, and its sizes decode as ``(2
+    sigmoid(t))^2 * anchor``; trainable as RepConv and IDetect's implicit
+    1x1 (``TrainableRepHead``), folded as ``Head``'s 3x3 and 1x1."""
+
+    size_decode: ClassVar[str] = "square"
+    family: ClassVar[str] = "YOLOv7"
+    label: ClassVar[str] = "RepConv heads"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,6 +298,8 @@ class PlanActivation:
     the mish backbone)."""
 
     name: str
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "activation switches"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +309,8 @@ class PlanSPP:
 
     in_ch: int
     kernels: Tuple[int, ...] = (5, 9, 13)
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "SPP"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +318,8 @@ class PlanSave:
     """Save the trunk as the route ``name``."""
 
     name: str
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "named routes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +331,8 @@ class PlanLateral:
     route: str
     in_ch: int
     out_ch: int
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "named routes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,16 +341,23 @@ class PlanJoin:
     ``[trunk, route]`` (PANet's bottom-up path)."""
 
     route: str
+    family: ClassVar[str] = "YOLOv4"
+    label: ClassVar[str] = "named routes"
 
 
-# the entries without weights that only a YOLOv4 plan has
-YOLOV4_WALK_ENTRIES = (PlanActivation, PlanSPP, PlanSave, PlanJoin)
-
-
-def has_yolov4_entries(plan) -> bool:
-    """Whether ``plan`` has YOLOv4's entries, which neither int8 PTQ,
-    spatial partitioning nor the darknet reader take."""
-    return any(isinstance(e, (*YOLOV4_WALK_ENTRIES, PlanLateral, PlanGridHead)) for e in plan)
+def refuse_walk_only(plan, path: str, missing: str) -> None:
+    """Raise a ValueError when ``plan`` has entries that only the folded and
+    the trainable walk take: YOLOv4's and YOLOv7's, each marked by its
+    ``family`` and ``label``, which neither int8 PTQ, spatial partitioning,
+    the darknet reader nor the Trainer take. The message names ``path``,
+    the plan's family (YOLOv7's when it has any of its entries: its plans
+    hold YOLOv4's named routes too), the entries' labels and ``missing``,
+    what ``path`` would need."""
+    found = [e for e in plan if getattr(e, "family", None)]
+    if found:
+        family = "YOLOv7" if any(e.family == "YOLOv7" for e in found) else "YOLOv4"
+        labels = ", ".join(dict.fromkeys(e.label for e in found))
+        raise ValueError(f"{path} does not take a {family} plan ({labels}): {missing}")
 
 
 Plan = Tuple
@@ -291,15 +369,19 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
     The DSL is ``cfg.layer_config`` when set, else ``layer_config`` when
     given, else the backbone's: ``CSP_LAYER_CONFIG`` for ``cspdarknet53``,
     ``build_tiny_plan`` for ``yolov3_tiny``, ``YOLOV4_LAYER_CONFIG`` for
-    ``yolov4`` and ``LAYER_CONFIG`` for any other name, as ``YOLOv3.plan``
-    of the JAX package chooses (which has no ``yolov4``).
+    ``yolov4``, ``YOLOV7_LAYER_CONFIG`` for ``yolov7`` and ``LAYER_CONFIG``
+    for any other name, as ``YOLOv3.plan`` of the JAX package chooses
+    (which has neither ``yolov4`` nor ``yolov7``).
 
     Entries: ``(out, k, stride)`` a conv; ``("B", n)`` a residual stage and
     ``("C", n)`` a CSP stage (8-block stages save a LIFO route); ``"S"``
     YOLOv3's five-conv set and head; ``"U"`` an upsample concatenated with
     the last LIFO route. YOLOv4's: ``("act", name)``, ``("spp", *kernels)``,
     ``("save", name)``, ``("lateral", route, out)``, ``("join", route)``
-    and ``("head", scale_xy)``, a head alone on the trunk."""
+    and ``("head", scale_xy)``, a head alone on the trunk. YOLOv7's:
+    ``("elan", mid, q, out)`` / ``("elanh", mid, q, out)``, ``("mp", c)`` /
+    ``("mp", c, route)``, ``("sppcspc", c)`` and ``("head", scale_xy,
+    "square")`` (``models/yolov7.py``)."""
     if cfg.layer_config is not None:
         layer_config = cfg.layer_config
     elif layer_config is None:
@@ -308,7 +390,8 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
 
             return build_tiny_plan(cfg)
         layer_config = {"cspdarknet53": CSP_LAYER_CONFIG,
-                        "yolov4": YOLOV4_LAYER_CONFIG}.get(cfg.backbone, LAYER_CONFIG)
+                        "yolov4": YOLOV4_LAYER_CONFIG,
+                        "yolov7": YOLOV7_LAYER_CONFIG}.get(cfg.backbone, LAYER_CONFIG)
     plan: List = []
     in_ch = cfg.in_channels
     first_csp = True
@@ -342,8 +425,22 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
             plan.append(PlanJoin(block[1]))
             in_ch += saved[block[1]]
         elif tag == "head":
-            plan.append(PlanGridHead(in_ch, cfg.num_classes, cfg.anchors_per_scale,
-                                     scale_xy=float(block[1])))
+            if block[2:] not in ((), ("square",)):
+                raise ValueError(f"Unknown head decode in {block!r}")
+            head = PlanRepHead if block[2:] else PlanGridHead
+            plan.append(head(in_ch, cfg.num_classes, cfg.anchors_per_scale,
+                             scale_xy=float(block[1])))
+        elif tag in ELAN_PICKS:
+            _, mid, q, out_ch = block
+            plan.append(PlanELAN(in_ch, mid, q, out_ch, ELAN_PICKS[tag]))
+            in_ch = out_ch
+        elif tag == "mp":
+            route = block[2] if len(block) > 2 else None
+            plan.append(PlanMP(in_ch, block[1], route))
+            in_ch = 2 * block[1] + (saved[route] if route is not None else 0)
+        elif tag == "sppcspc":
+            plan.append(PlanSPPCSPC(in_ch, block[1]))
+            in_ch = block[1]
         elif isinstance(block, tuple):
             out_ch, k, s = block
             plan.append(PlanConv(in_ch, out_ch, kernel=k, stride=s))
@@ -416,11 +513,25 @@ class TrainableHead(nn.Module):
         super().__init__()
         out_ch = (entry.num_classes + 5) * entry.anchors_per_scale
         self.entry = entry
-        self.conv1 = ConvBlock(entry.in_ch, entry.mid, 3, generator=generator)
-        self.conv2 = ConvBlock(entry.mid, out_ch, 1, bn=False, generator=generator)
+        self.conv1, self.conv2 = self._convs(entry.in_ch, entry.mid, out_ch, generator)
+
+    @staticmethod
+    def _convs(in_ch: int, mid: int, out_ch: int, generator):
+        return (ConvBlock(in_ch, mid, 3, generator=generator),
+                ConvBlock(mid, out_ch, 1, bn=False, generator=generator))
 
     def forward(self, x, act, rows=None):
         return self.conv2(self.conv1(x, act, rows), rows=rows)
+
+
+class TrainableRepHead(TrainableHead):
+    """YOLOv7's head in its training form: RepConv + activation, then
+    IDetect's implicit 1x1; ``fold()`` gives ``Head``'s 3x3 and 1x1."""
+
+    @staticmethod
+    def _convs(in_ch: int, mid: int, out_ch: int, generator):
+        return (RepConvBlock(in_ch, mid, generator=generator),
+                ImplicitConv(mid, out_ch, generator=generator))
 
 
 class YOLOv3(nn.Module):
@@ -586,8 +697,13 @@ LAYERS = {
     PlanCSP: (TrainableCSPStage, CSPStage),
     PlanHead: (TrainableHead, Head),
     PlanGridHead: (TrainableHead, Head),
+    PlanRepHead: (TrainableRepHead, Head),
+    **{entry: (lambda e, g, block=block: block(e, lambda *shape: ConvBlock(*shape, generator=g)),
+               lambda e, block=block: block(e, FoldedConv))
+       for entry, block in ((PlanELAN, ELAN), (PlanMP, MPDown), (PlanSPPCSPC, SPPCSPC))},
     **{t: (nn.Identity, nn.Identity)
-       for t in (PlanUpsample, PlanMaxPool, PlanRoute, *YOLOV4_WALK_ENTRIES)},
+       for t in (PlanUpsample, PlanMaxPool, PlanRoute, PlanActivation, PlanSPP, PlanSave,
+                 PlanJoin)},
 }
 
 
@@ -690,7 +806,8 @@ class FoldedYOLOv3(nn.Module):
     ``memory_format=torch.channels_last`` weights the activations are NHWC
     in memory, which is what the fused residual kernel and K5 take (the
     concats, pools and upsamples keep it). On a YOLOv4 plan the forward
-    runs in three spans (``_parts``).
+    runs in three spans (``_parts``); on a YOLOv7 plan each ELAN and the
+    SPPCSPC run in a span of their own (``_walk``).
     """
 
     def __init__(self, cfg: ModelConfig, plan: Optional[Plan] = None):
@@ -755,19 +872,20 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     upsample (a concat ``[upsampled, route]``); a ``PlanSave`` saves one by
     name, which a ``PlanLateral`` or ``PlanJoin`` reads; a head is a
     branch. Each part of ``model._parts`` runs inside its span (a YOLOv4
-    plan's three; none for any other plan). Every channel concat is
-    counted in ``utils/profiling.py::concat_bytes``.
+    plan's three; none for any other plan); each ``PlanELAN`` runs inside
+    ``forward.elan`` and each ``PlanSPPCSPC`` inside ``forward.sppcspc``, a
+    ``PlanMP`` joins its named route. Every channel concat is counted in
+    ``utils/profiling.py::concat_bytes``.
 
     With a ``layout``, ``rows`` says how each activation lies on the mesh;
     ``layout.constrain`` re-lays it where the height changes (the JAX
-    ``constrain`` points) and the heads are gathered. A YOLOv4 plan takes
-    no layout."""
+    ``constrain`` points) and the heads are gathered. A YOLOv4 or YOLOv7
+    plan takes no layout."""
     x = x.to(next(model.parameters()).dtype).permute(0, 3, 1, 2)
     rows = None
     if layout is not None:
-        if has_yolov4_entries(model.plan):
-            raise ValueError("spatial partitioning does not take a YOLOv4 plan "
-                             "(SPP, named routes)")
+        refuse_walk_only(model.plan, "spatial partitioning",
+                         "no halo rule for these entries is ported")
         x, rows = layout.enter(x)
     preds: List[torch.Tensor] = []
     routes: List[torch.Tensor] = []
@@ -812,4 +930,12 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
                     x = cat_channels([layer(named[entry.route], act), upsample2x(x)])
                 elif isinstance(entry, PlanJoin):
                     x = cat_channels([x, named[entry.route]])
+                elif isinstance(entry, PlanELAN):
+                    with span("forward.elan"):
+                        x = layer(x, act)
+                elif isinstance(entry, PlanMP):
+                    x = layer(x, act, None if entry.route is None else named[entry.route])
+                elif isinstance(entry, PlanSPPCSPC):
+                    with span("forward.sppcspc"):
+                        x = layer(x, act)
     return preds

@@ -1,0 +1,128 @@
+"""YOLOv7's blocks (Wang, Bochkovskiy and Liao, arXiv:2207.02696): E-ELAN,
+MP down-sampling and SPPCSPC, as plan entries and as modules over either
+conv (the trainable ``ConvBlock`` or the folded ``FoldedConv``), in the
+manner of ``models/cspdarknet.py``. ``models/yolov3.py`` builds them from
+the layer list (``YOLOV7_LAYER_CONFIG``), walks them and gives YOLOv7's
+head (``PlanRepHead``). Every conv is ``Conv(c, k, s)``: a conv with padding
+k // 2, BN folded into a bias on the folded side, then SiLU.
+
+- ``PlanELAN`` (``["elan", mid, q, out]`` in the backbone, ``["elanh", mid,
+  q, out]`` in the neck): ``a = Conv1x1(x, mid)``, ``b = Conv1x1(x, mid)``, a
+  chain of four 3x3 convs to ``q`` from ``b``, and a 1x1 to ``out`` on the
+  concat of the chain outputs that ``picks`` names (deepest first), then
+  ``b`` and ``a``: ``(4, 2)`` for ELAN, ``(4, 3, 2, 1)`` for ELAN-H;
+- ``PlanMP`` (``["mp", c]``, ``["mp", c, route]``): ``[Conv3x3s2(Conv1x1(x,
+  c), c), Conv1x1(maxpool2x2s2(x), c)]``, and the saved route ``route`` as a
+  third part when one is named;
+- ``PlanSPPCSPC`` (``["sppcspc", c]``): the 5, 9 and 13 SAME pools inside a
+  CSP split, seven convs ``cv1`` ... ``cv7`` and two concats, in the order
+  of YOLOv7's ``common.py::SPPCSPC``: ``cat[x1, pool5(x1), pool9(x1),
+  pool13(x1)]``.
+
+The weight tree of each holds its convs by their names in the module
+(``a``, ``b``, ``chain[j]``, ``fuse``; ``pool``, ``reduce``, ``down``;
+``cv1`` ... ``cv7``), which ``conv_paths`` reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import ClassVar, Optional, Tuple
+
+import torch.nn as nn
+
+from .blocks import cat_channels, maxpool2d
+
+# which chain outputs each ELAN form's concat joins, deepest first (1-4;
+# 0 would be b, which always joins after them)
+ELAN_PICKS = {"elan": (4, 2), "elanh": (4, 3, 2, 1)}
+SPP_POOLS = (5, 9, 13)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanELAN:
+    in_ch: int
+    mid: int
+    q: int
+    out_ch: int
+    picks: Tuple[int, ...]
+    family: ClassVar[str] = "YOLOv7"
+    label: ClassVar[str] = "ELAN"
+
+    @property
+    def cat_ch(self) -> int:
+        return len(self.picks) * self.q + 2 * self.mid
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMP:
+    in_ch: int
+    out_ch: int  # each conv branch's width
+    route: Optional[str] = None
+    family: ClassVar[str] = "YOLOv7"
+    label: ClassVar[str] = "MP"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSPPCSPC:
+    in_ch: int
+    out_ch: int
+    family: ClassVar[str] = "YOLOv7"
+    label: ClassVar[str] = "SPPCSPC"
+
+
+class ELAN(nn.Module):
+    """An ELAN or ELAN-H block of ``conv(in_ch, out_ch, kernel)``s, made and
+    registered in the order a, b, the chain, fuse."""
+
+    def __init__(self, entry: PlanELAN, conv):
+        super().__init__()
+        self.entry = entry
+        self.a = conv(entry.in_ch, entry.mid, 1)
+        self.b = conv(entry.in_ch, entry.mid, 1)
+        self.chain = nn.ModuleList(conv(entry.mid if j == 0 else entry.q, entry.q, 3)
+                                   for j in range(4))
+        self.fuse = conv(entry.cat_ch, entry.out_ch, 1)
+
+    def forward(self, x, act):
+        a = self.a(x, act)
+        outs = [self.b(x, act)]
+        for c in self.chain:
+            outs.append(c(outs[-1], act))
+        return self.fuse(cat_channels([outs[p] for p in self.entry.picks] + [outs[0], a]), act)
+
+
+class MPDown(nn.Module):
+    """MP down-sampling: ``pool`` (the 1x1 after the max pool), ``reduce``
+    and ``down`` (the stride-2 3x3), in YOLOv7's order."""
+
+    def __init__(self, entry: PlanMP, conv):
+        super().__init__()
+        self.pool = conv(entry.in_ch, entry.out_ch, 1)
+        self.reduce = conv(entry.in_ch, entry.out_ch, 1)
+        self.down = conv(entry.out_ch, entry.out_ch, 3, 2)
+
+    def forward(self, x, act, route=None):
+        parts = [self.down(self.reduce(x, act), act), self.pool(maxpool2d(x, 2, 2), act)]
+        return cat_channels(parts if route is None else parts + [route])
+
+
+class SPPCSPC(nn.Module):
+    """SPPCSPC at ``c_ = out_ch``: ``cv1`` ... ``cv7`` registered in order."""
+
+    def __init__(self, entry: PlanSPPCSPC, conv):
+        super().__init__()
+        cin, c = entry.in_ch, entry.out_ch
+        self.cv1 = conv(cin, c, 1)
+        self.cv2 = conv(cin, c, 1)
+        self.cv3 = conv(c, c, 3)
+        self.cv4 = conv(c, c, 1)
+        self.cv5 = conv(4 * c, c, 1)
+        self.cv6 = conv(c, c, 3)
+        self.cv7 = conv(2 * c, c, 1)
+
+    def forward(self, x, act):
+        x1 = self.cv4(self.cv3(self.cv1(x, act), act), act)
+        pooled = cat_channels([x1] + [maxpool2d(x1, k, 1) for k in SPP_POOLS])
+        y1 = self.cv6(self.cv5(pooled, act), act)
+        return self.cv7(cat_channels([y1, self.cv2(x, act)]), act)

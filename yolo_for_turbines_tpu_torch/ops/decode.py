@@ -12,7 +12,9 @@ grid size (cell units).
   order): box math in f32, the class argmax in the head's dtype. A scale's
   ``scale_xy`` (YOLOv4's grid-sensitive decode, darknet's ``scale_x_y``)
   stretches the cell offset: ``sigmoid(t) * scale_xy - (scale_xy - 1) / 2``;
-  at 1.0 (YOLOv3) no op is added.
+  at 1.0 (YOLOv3) no op is added. A scale's ``size_decode`` reads the size
+  logits as ``exp(t) * anchor`` (``"exp"``: YOLOv3, YOLOv4) or as ``(2
+  sigmoid(t))^2 * anchor`` (``"square"``: YOLOv7).
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def decode_all_scales(predictions, scaled_anchors, grid_sizes) -> torch.Tensor:
 
 
 def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
-                     num_classes: int, scale_xy: float = 1.0) -> torch.Tensor:
+                     num_classes: int, scale_xy: float = 1.0,
+                     size_decode: str = "exp") -> torch.Tensor:
     """Decode one scale's raw NHWC head output."""
     b, s = raw.shape[0], grid_size
     anchors = torch.as_tensor(anchors, device=raw.device).to(raw.dtype)
@@ -79,7 +82,13 @@ def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
         ox, oy = ox * scale_xy - shift, oy * scale_xy - shift
     cx = (ox + ar[None, None, :, None, None]) / s
     cy = (oy + ar[None, :, None, None, None]) / s
-    wh = torch.exp(box[..., 2:4]) * anchors.float().reshape(1, 1, 1, a, 2) / s
+    if size_decode == "exp":
+        size = torch.exp(box[..., 2:4])
+    elif size_decode == "square":
+        size = (torch.sigmoid(box[..., 2:4]) * 2).square()
+    else:
+        raise ValueError(f"unknown size decode {size_decode!r}")
+    wh = size * anchors.float().reshape(1, 1, 1, a, 2) / s
     scores = torch.sigmoid(box[..., 4:5])
     best_class = torch.argmax(y[..., 5:], dim=-1)[..., None].float()
     boxes = torch.cat([cx, cy, wh, scores, best_class], dim=-1)
@@ -87,12 +96,15 @@ def decode_raw_scale(raw: torch.Tensor, anchors: torch.Tensor, grid_size: int,
 
 
 def decode_raw_all(raw_preds, scaled_anchors, grid_sizes, num_classes: int,
-                   scale_xy=None):
+                   scale_xy=None, size_decode=None):
     """Raw-head decode over all scales -> (B, sum(S*S*A), 6); ``scale_xy``
-    one factor per scale, or None for 1.0 at every scale."""
+    one factor per scale, or None for 1.0 at every scale; ``size_decode``
+    one mode per scale, or None for ``"exp"`` at every scale."""
     scale_xy = scale_xy or (1.0,) * len(raw_preds)
+    size_decode = size_decode or ("exp",) * len(raw_preds)
     parts = [
-        decode_raw_scale(r, scaled_anchors[i], grid_sizes[i], num_classes, scale_xy[i])
+        decode_raw_scale(r, scaled_anchors[i], grid_sizes[i], num_classes, scale_xy[i],
+                         size_decode[i])
         for i, r in enumerate(raw_preds)
     ]
     return torch.cat(parts, dim=1)

@@ -7,7 +7,7 @@ then rewrites the output ``y`` in place:
 
     y = bf16(skip + act(float(y) + float(bias)))    # skip optional
 
-with ``act`` identity, leaky_relu(0.1) or mish, in f32 and rounded once,
+with ``act`` identity, leaky_relu(0.1), mish or silu, in f32 and rounded once,
 where the composition it replaces (the conv's bias add, the activation,
 ``x + y``) read and wrote the activation three times and rounded it each
 time. ``y`` and ``skip`` are (B, C, H, W) tensors stored channels_last (NHWC
@@ -32,11 +32,12 @@ from . import check, load_library, stream_handle
 launches = 0
 
 # the activation codes of csrc/epilogue.cu
-ACT_CODES = {"identity": 0, "leaky_relu": 1, "mish": 2}
+ACT_CODES = {"identity": 0, "leaky_relu": 1, "mish": 2, "silu": 3}
 _ACTIVATIONS = {
     "identity": lambda t: t,
     "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
     "mish": F.mish,
+    "silu": F.silu,
 }
 
 
@@ -82,7 +83,7 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identi
     Args:
         y: (B, C, H, W) conv output stored channels_last; bf16 on CUDA.
         bias: (C,) in ``y``'s dtype.
-        activation: "identity", "leaky_relu" (slope 0.1) or "mish".
+        activation: "identity", "leaky_relu" (slope 0.1), "mish" or "silu".
         skip: None, or a tensor like ``y`` (a residual block's input) that
             does not overlap it.
     """

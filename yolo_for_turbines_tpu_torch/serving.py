@@ -295,7 +295,7 @@ class _ServeModule(torch.nn.Module):
                                        raw_heads=True, compute_dtype=pred.compute_dtype,
                                        portable=True)
         boxes = decode_raw_all(raw, scaled_anchors, grid_sizes, model.cfg.num_classes,
-                               pred.scale_xy)
+                               pred.scale_xy, pred.size_decode)
         return batched_nms(boxes, iou_threshold=pred.nms_iou_threshold,
                            obj_threshold=pred.conf_threshold, max_boxes=pred.max_boxes,
                            portable=True)

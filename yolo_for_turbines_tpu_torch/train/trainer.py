@@ -66,7 +66,7 @@ from .. import config as cfg
 from ..config import ModelConfig, TrainConfig
 from ..data.loader import get_loaders, prefetch_to_device
 from ..models.darknet_weights import load_darknet_into
-from ..models.yolov3 import YOLOv3, has_yolov4_entries
+from ..models.yolov3 import YOLOv3, refuse_walk_only
 from ..ops.map import calc_map, calc_map_device_batched
 from ..parallel import comm
 from ..parallel.mesh import batch_sharding, create_mesh, init_from_env
@@ -176,9 +176,9 @@ class Trainer:
 
         model = YOLOv3(self.model_cfg,
                        generator=torch.Generator().manual_seed(train_cfg.seed))
-        if has_yolov4_entries(model.plan):
-            raise ValueError("YOLOv4's training recipe (CIoU, scale_x_y in the loss) is not "
-                             "ported: a YOLOv4 plan serves only")
+        refuse_walk_only(model.plan, "the Trainer",
+                         "its training recipe (its loss and target assignment) is not ported; "
+                         "such a plan serves only")
         frozen = []
         if weights_path is not None and train_cfg.load_weights:
             frozen, _ = load_darknet_into(str(weights_path), model,
