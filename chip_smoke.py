@@ -62,6 +62,23 @@ Phases, one JSON line each:
           instructions of the built kernel counted in cuobjdump's SASS
           (both must be present); alone, with the env and build lines:
           python3 -c "import chip_smoke; chip_smoke.k7_alone()";
+  k8      the max pools of the folded bf16 forward against the aten
+          composition they replaced (the pools, and the concat after SPP's):
+          SPP's pyramid (13, 9, 5, 1) at 19x19x512 and SPPCSPC's (1, 5, 9, 13)
+          at 20x20x512, YOLOv7's five MP 2x2 pools at 640px, at B = 2 with
+          NaN and -inf planted and at B = 64: equal by value, NaN in the
+          same places; CUDA-event times at B = 64 (each launch on an input
+          outside L2) beside the byte bound and aten's time; registers,
+          stack and local memory of each K8 kernel (cuobjdump -res-usage);
+          planes beyond a band of shared memory (86x86, 160x160, 40x558),
+          tiny's stride-1 2x2 pool, and inputs the wrappers refuse (NCHW, 12
+          channels, off 16 bytes, a channel slice) through the router, which
+          launches K8 for each, at B = 2: equal by value in the input's layout;
+          K8 launches per YOLOv4 predict_batch at 608px (1; YOLOv7's 6 are
+          phase yolov7's), and a YOLOv7 forward with every pool on aten
+          (pool_wins patched) against the unpatched one in the same
+          process: heads equal; alone, with the env and build lines:
+          python3 -c "import chip_smoke; chip_smoke.k8_alone()";
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K5 exactly 59 times per predict_batch at B = 8 and 128;
@@ -314,6 +331,18 @@ K7_GEOMETRIES = ((416, 3, 32, 3, 1, 1), (416, 32, 64, 3, 2, 1), (208, 64, 32, 1,
                  (26, 512, 1024, 3, 2, 1), (26, 256, 256, 1, 1, 1), (26, 512, 256, 1, 1, 3),
                  (26, 256, 512, 3, 1, 2), (26, 256, 128, 1, 1, 1), (13, 1024, 512, 1, 1, 7),
                  (13, 512, 1024, 3, 1, 6), (13, 512, 256, 1, 1, 1))
+# K8's pyramids, B = 64: (side, C, windows) of YOLOv4's SPP at 608px and
+# YOLOv7's SPPCSPC at 640px
+K8_PYRAMIDS = ((19, 512, (13, 9, 5, 1)), (20, 512, (1, 5, 9, 13)))
+# K8's 2x2 pools, B = 64: (side, C) of YOLOv7's five MP inputs at 640px
+K8_MP = ((160, 256), (80, 512), (40, 1024), (80, 128), (40, 256))
+# K8 launches per bf16 predict_batch: YOLOv4's SPP; YOLOv7's SPPCSPC and MP
+K8_PER_CALL = {"yolov4": 1, "yolov7": 6}
+# K8 checked besides at B = 2: (H, W, C, windows) of pyramids over planes
+# in bands of rows, and (side, C) of tiny's stride-1 2x2 pool at 416px
+K8_BANDED = ((86, 86, 64, (13, 9, 5, 1)), (160, 160, 8, (1, 5, 9, 13)),
+             (40, 558, 16, (13, 9, 5, 1)))
+K8_STRIDE1 = ((13, 512),)
 # K6's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, residual) of
 # the stem conv, a 208x208 residual block's 3x3 (the block's input added),
 # a 52x52 1x1 and the 13x13 neck's 3x3
@@ -1126,6 +1155,201 @@ def phase_k7(dev):
             "timed": out["timed"], "least_share_of_bound": worst["share_of_bound"]}
 
 
+def same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal as values: NaN in the same places, every other element equal."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and bool((a.masked_fill(na, 0) == b.masked_fill(nb, 0)).all()))
+
+
+def res_usage(fragment: str) -> dict:
+    """Registers, stack and local bytes of each kernel of the built library
+    whose name contains ``fragment`` (cuobjdump -res-usage)."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-res-usage", str(kernels.LIBRARY)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found, name = {}, ""
+    for line in text.splitlines():
+        if "Function" in line:
+            name = line.split("Function", 1)[1].strip(" :")
+        elif "REG:" in line and fragment in name:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            found[name] = {k: fields.get(k) for k in ("REG", "STACK", "SHARED", "LOCAL")}
+    return found
+
+
+def k8_planted(x: torch.Tensor, gen) -> torch.Tensor:
+    """NaN at a few cells, -inf over one whole channel and a 3x3 patch."""
+    x = x.clone()
+    b, c, h, w = x.shape
+    for _ in range(4):
+        i = [int(torch.randint(n, (1,), generator=gen)) for n in (b, c, h, w)]
+        x[i[0], i[1], i[2], i[3]] = float("nan")
+    x[:, c - 1] = float("-inf")
+    x[:, 0, :3, :3] = float("-inf")
+    return x
+
+
+def k8_model(family: str, dev):
+    """YOLOv4 at 608px or YOLOv7 at 640px (80 classes, seeded folded
+    weights) as a bf16 predictor, and its input size."""
+    from yolo_for_turbines_tpu_torch import config as cfg
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+
+    activation, size, anchors = {"yolov4": ("mish", 608, cfg.YOLOV4_ANCHORS),
+                                 "yolov7": ("silu", 640, cfg.YOLOV7_ANCHORS)}[family]
+    model_cfg = ModelConfig(backbone=family, activation=activation,
+                            strides=cfg.strides_for(family))
+    plan = build_plan(model_cfg)
+    tree = init_plan(plan, torch.Generator().manual_seed(SEED + 8))
+    return Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev, anchors=anchors,
+                     image_size=size), size
+
+
+def phase_k8(dev):
+    """K8 against the aten composition it replaced, by value, at the
+    geometries the YOLOv4 and YOLOv7 cells run (B = 2 with NaN and -inf
+    planted, and B = 64); its times at B = 64 beside the byte bound and
+    aten's; its registers and spills; its launches per predict_batch; a
+    YOLOv7 forward on aten's pools against K8's, heads equal."""
+    from yolo_for_turbines_tpu_torch.models import blocks
+    from yolo_for_turbines_tpu_torch.ops.kernels import maxpool_kernel as mk
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out = {"phase": "k8", "kernel": "maxpool", "checks": [], "timed": []}
+    out["res_usage"] = res_usage("maxpool")
+
+    def nhwc(b, c, side):
+        x = torch.randn((b, c, side, side), generator=gen).to(torch.bfloat16)
+        return x.to(dev).contiguous(memory_format=torch.channels_last)
+
+    cases = [(f"pyramid {side}x{side}x{c} {windows}", side, c,
+              lambda x, w=windows: mk.maxpool_pyramid(x, w),
+              lambda x, w=windows: mk.maxpool_pyramid_reference(x, w),
+              len(windows)) for side, c, windows in K8_PYRAMIDS]
+    cases += [(f"2x2 {side}x{side}x{c}", side, c, mk.maxpool2x2, mk.maxpool2x2_reference,
+               0.25) for side, c in K8_MP]
+    mk.launches = 0
+    for name, side, c, kernel, aten, _ in cases:
+        for b in (2, 64):
+            x = nhwc(b, c, side)
+            if b == 2:
+                x = k8_planted(x, gen)
+            ok = same_values(kernel(x), aten(x))
+            torch.cuda.synchronize()
+            out["checks"].append({"case": name, "B": b, "equal_by_value": ok})
+            if not ok:
+                emit(out)
+                raise AssertionError(f"K8 differs from aten at {name}, B = {b}")
+    for h, w, c, windows in K8_BANDED:
+        x = k8_planted(torch.randn((2, c, h, w), generator=gen).to(torch.bfloat16).to(dev)
+                       .contiguous(memory_format=torch.channels_last), gen)
+        ok = same_values(mk.maxpool_pyramid(x, windows), mk.maxpool_pyramid_reference(x, windows))
+        out["checks"].append({"case": f"pyramid {h}x{w}x{c} {windows} in bands", "B": 2,
+                              "equal_by_value": ok})
+        require(ok, f"K8 differs from aten at {h}x{w}x{c} in bands")
+    for side, c in K8_STRIDE1:
+        x = k8_planted(nhwc(2, c, side), gen)
+        ok = same_values(mk.maxpool2x2(x, 1), mk.maxpool2x2_reference(x, 1))
+        out["checks"].append({"case": f"2x2 stride 1 {side}x{side}x{c}", "B": 2,
+                              "equal_by_value": ok})
+        require(ok, f"K8 differs from aten at stride 1, {side}x{side}x{c}")
+    x = k8_planted(nhwc(2, 64, 20), gen)
+    base = torch.empty(x.numel() + 8, dtype=torch.bfloat16, device=dev)
+    off = base[4 : 4 + x.numel()].view(2, 20, 20, 64).permute(0, 3, 1, 2)
+    off.copy_(x)
+    refused = {"nchw": x.contiguous(), "12 channels": k8_planted(nhwc(2, 12, 20), gen),
+               "off 16 bytes": off, "channel slice": x[:, 8:48]}
+    for name, t in refused.items():
+        before = mk.launches
+        got = blocks.maxpool_pyramid(t, (13, 9, 5, 1))
+        down = blocks.maxpool2d(t, 2, 2)
+        nchw = t.is_contiguous() and not t.is_contiguous(memory_format=torch.channels_last)
+        ok = (mk.launches == before + 2
+              and same_values(got, mk.maxpool_pyramid_reference(t, (13, 9, 5, 1)))
+              and same_values(down, mk.maxpool2x2_reference(t))
+              and all(y.is_contiguous() if nchw
+                      else y.is_contiguous(memory_format=torch.channels_last)
+                      for y in (got, down)))
+        out["checks"].append({"case": f"router, {name}", "B": 2, "equal_by_value": ok})
+        require(ok, f"the router's K8 route differs from aten for {name}")
+    out["check_launches"] = mk.launches
+    for name, side, c, kernel, aten, written in cases:
+        x = nhwc(64, c, side)
+        nbytes = x.numel() * 2 * (1 + written)
+        # inputs enough to outrun the 50 MB L2: each launch reads its plane
+        # cold, as after the conv that wrote it and the ones between
+        copies = [x.clone(memory_format=torch.channels_last)
+                  for _ in range(max(1, -(-int(150e6) // (x.numel() * 2))))]
+        turn = iter(range(1 << 30))
+        ms, aten_ms = ab_ms(lambda: kernel(copies[next(turn) % len(copies)]),
+                            lambda: aten(copies[next(turn) % len(copies)]),
+                            iters=50, plain_iters=10)
+        bound_ms, bound_by = bound_of(nbytes, 0.0, BF16_FLOPS)
+        out["timed"].append({"shape": name, "B": 64, "ms": ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                             "gb_per_s": nbytes / ms / 1e6, "library_ms": aten_ms,
+                             "copies": len(copies)})
+        del x, copies
+        torch.cuda.empty_cache()
+    per_call, heads_equal = {}, None
+    for family in ("yolov4", "yolov7"):
+        pred, size = k8_model(family, dev)
+        x = torch.from_numpy(np.random.default_rng(SEED + 8).uniform(
+            size=(8, size, size, 3)).astype(np.float32)).to(dev)
+        mk.launches = 0
+        kept, _ = pred.predict_batch(x)
+        torch.cuda.synchronize()
+        per_call[family] = mk.launches
+        require(bool(torch.isfinite(kept).all()), f"{family} boxes not finite")
+        if family == "yolov7":
+            with torch.inference_mode():
+                heads = pred.model(x)
+                wins = blocks.pool_wins
+                blocks.pool_wins = lambda t: False
+                try:
+                    before = mk.launches
+                    aten_heads = pred.model(x)
+                    require(mk.launches == before, "K8 launched with pool_wins patched")
+                finally:
+                    blocks.pool_wins = wins
+            torch.cuda.synchronize()
+            heads_equal = all(same_values(a, b) for a, b in zip(heads, aten_heads))
+        del pred, x
+        torch.cuda.empty_cache()
+    out["launches_per_predict_batch"] = per_call
+    out["yolov7_heads_equal_with_aten_pools"] = heads_equal
+    emit(out)
+    require(per_call == K8_PER_CALL, f"K8 launches per predict_batch {per_call}, not "
+                                     f"{K8_PER_CALL}")
+    require(heads_equal, "YOLOv7's heads differ with aten's pools")
+    require(len(out["res_usage"]) == 2 and all(
+        r["STACK"] == "0" and r["LOCAL"] == "0" for r in out["res_usage"].values()),
+        f"K8's kernels spill or are missing: {out['res_usage']}")
+    first = out["timed"][0]
+    worst = min(out["timed"], key=lambda r: r["share_of_bound"])
+    return {"ms": first["ms"], "plain_ms": first["library_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "timed": out["timed"], "least_share_of_bound": worst["share_of_bound"],
+            "per_call": per_call}
+
+
+def k8_alone() -> None:
+    """The env and build lines, then phase k8, on the first card."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    phase_k8(torch.device("cuda", 0))
+
+
 def k7_alone() -> None:
     """The env and build lines, then phase k7, on the first card."""
     from yolo_for_turbines_tpu_torch.ops import kernels
@@ -1254,7 +1478,8 @@ def phase_main(dev):
 
 def phase_yolov7(dev):
     """YOLOv7 at 640px (80 classes, seeded folded weights) served in bf16:
-    K5 once per conv in each ``predict_batch`` (92), K1 at the end, no K2.
+    K5 once per conv in each ``predict_batch`` (92), K8 once per pool
+    pyramid or MP pool (6), K1 at the end, no K2.
     The raw heads of one image against the f32 forward on the CPU are
     printed, not gated: the cell (``perfbench``) holds YOLOv7 to its
     reference on calibrated weights."""
@@ -1265,6 +1490,7 @@ def phase_yolov7(dev):
     from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
     from yolo_for_turbines_tpu_torch.ops.kernels import (
         epilogue_kernel,
+        maxpool_kernel,
         nms_kernel,
         resblock_kernel,
     )
@@ -1281,9 +1507,11 @@ def phase_yolov7(dev):
     per_call = []
     for _ in range(2):
         epilogue_kernel.launches = nms_kernel.launches = resblock_kernel.launches = 0
+        maxpool_kernel.launches = 0
         kept, mask = pred.predict_batch(x)
         torch.cuda.synchronize()
         per_call.append({"conv_epilogue": epilogue_kernel.launches,
+                         "maxpool": maxpool_kernel.launches,
                          "greedy_nms": nms_kernel.launches,
                          "fused_residual_stage": resblock_kernel.launches})
     out["launches_per_predict_batch"] = per_call
@@ -1296,10 +1524,11 @@ def phase_yolov7(dev):
     out["head_rel_rms_err"] = errs
     emit(out)
     require(all(c["conv_epilogue"] == K5_PER_CALL_YOLOV7 and c["greedy_nms"] >= 1
+                and c["maxpool"] == K8_PER_CALL["yolov7"]
                 and c["fused_residual_stage"] == 0 for c in per_call),
             f"YOLOv7 launches per bf16 predict_batch {per_call}: K5 not "
-            f"{K5_PER_CALL_YOLOV7}, no K1, or K2")
-    return per_call[0]["conv_epilogue"]
+            f"{K5_PER_CALL_YOLOV7}, K8 not {K8_PER_CALL['yolov7']}, no K1, or K2")
+    return per_call[0]["conv_epilogue"], per_call[0]["maxpool"]
 
 
 def phase_main_f32(dev, x1, cpu_heads):
@@ -3364,8 +3593,9 @@ def main() -> int:
     k5 = phase_k5(dev)
     k6 = phase_k6(dev)
     k7 = phase_k7(dev)
+    k8 = phase_k8(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
-    k5_yolov7 = phase_yolov7(dev)
+    k5_yolov7, k8_yolov7 = phase_yolov7(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)
@@ -3451,6 +3681,13 @@ def main() -> int:
          "source": "yolo_for_turbines_tpu_torch/csrc/conv_int8.cu", "replaces": None,
          "launches_by_path": {"main_int8_per_predict_batch": K7_PER_CALL},
          **k7},
+        # replaces no TPU kernel: XLA fused the JAX package's reduce_window
+        # pools with their neighbours
+        {"name": "maxpool", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/maxpool.cu", "replaces": None,
+         "launches_by_path": {"yolov4_per_predict_batch": k8.pop("per_call")["yolov4"],
+                              "yolov7_per_predict_batch": k8_yolov7},
+         **k8},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

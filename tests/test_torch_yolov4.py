@@ -39,6 +39,7 @@ from yolo_for_turbines_tpu_torch.models.yolov3 import (
     build_plan,
 )
 from yolo_for_turbines_tpu_torch.ops.decode import decode_raw_scale
+from yolo_for_turbines_tpu_torch.ops.kernels import maxpool_kernel
 from yolo_for_turbines_tpu_torch.utils import profiling
 
 SIZE, CLASSES, DIV = 96, 3, 16
@@ -245,16 +246,19 @@ def _reckoned_concat_bytes(plan, side: int, batch: int, itemsize: int = 4) -> in
 
 def test_spans_once_per_forward_and_the_concat_counter(small):
     """Under a profiler the forward opens ``forward.backbone``,
-    ``forward.spp`` and ``forward.neck`` once each, one after the other;
-    the counter grows by the bytes the plan's concats write."""
+    ``forward.spp`` and ``forward.neck`` once each, one after the other,
+    and SPP's pyramid ``forward.pool`` inside ``forward.spp``; the counter
+    grows by the bytes the plan's concats write."""
     c, plan, tree, x = small
     model = _predictor(c, tree).model
     before = profiling.concat_bytes
     with torch.no_grad(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         t0 = profiling.time.perf_counter()
         model(x)
-    names = [s.name for s in profiling.spans(since=t0)]
-    assert names == ["forward.backbone", "forward.spp", "forward.neck"]
+    opened = profiling.spans(since=t0)
+    names = [s.name for s in opened]
+    assert names == ["forward.backbone", "forward.spp", "forward.pool", "forward.neck"]
+    assert opened[2].parent == opened[1].id
     assert profiling.concat_bytes - before == _reckoned_concat_bytes(model.plan, SIZE, 4)
 
 
@@ -289,12 +293,16 @@ def test_every_conv_takes_channels_last_input(small):
 
 @pytest.mark.parametrize("k", [5, 9, 13])
 def test_odd_same_pool_is_the_padded_pool_and_keeps_channels_last(k):
+    """SPP's pools, as the pyramid's plain version and the CPU route take
+    them, and ``maxpool2d``'s SAME pool: the pool over an explicit -inf
+    pad, stored channels_last."""
     x = torch.randn(2, 8, 11, 11).contiguous(memory_format=torch.channels_last)
-    got = blocks.maxpool2d(x, k, 1)
     p = k // 2
     want = torch.nn.functional.max_pool2d(
         torch.nn.functional.pad(x, (p, p, p, p), value=float("-inf")), k, 1)
-    assert torch.equal(got, want) and got.is_contiguous(memory_format=torch.channels_last)
+    for got in (maxpool_kernel.maxpool_pyramid_reference(x, (k,)),
+                blocks.maxpool_pyramid(x, (k,)), blocks.maxpool2d(x, k, 1)):
+        assert torch.equal(got, want) and got.is_contiguous(memory_format=torch.channels_last)
 
 
 @pytest.mark.parametrize("what", ["quantize", "layout", "darknet", "train"])
@@ -372,7 +380,7 @@ def test_the_yolov4_cell_at_a_small_size(tmp_path, monkeypatch, variant):
     if variant == "program":
         metrics = result["metrics"]
         assert {"v4.mfu", "v4.backbone_ms", "v4.spp_ms", "v4.neck_ms", "v4.concat_mb",
-                "offline.forward_ms"} <= set(metrics)
+                "offline.forward_ms", "offline.pool_ms"} <= set(metrics)
         batch = bench.mix(cell)["batch"]
         plan = build_plan(model_cfg(small_cfg()))
         assert metrics["v4.concat_mb"]["value"] * 1e6 == pytest.approx(

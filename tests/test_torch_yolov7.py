@@ -360,9 +360,11 @@ def _reckoned_concat_bytes(plan, side: int, batch: int, itemsize: int = 4) -> in
 
 def test_spans_per_forward_and_the_concat_counter(small):
     """Under a profiler the forward opens ``forward.elan`` 8 times (4 ELAN,
-    4 ELAN-H) and ``forward.sppcspc`` once, in the walk's order, and none of
-    YOLOv4's spans; the counter grows by the bytes the plan's concats
-    write, which is the reference's count of concat elements."""
+    4 ELAN-H), ``forward.sppcspc`` once and ``forward.pool`` for each of the
+    5 MP pools and inside ``forward.sppcspc`` for its pyramid, in the walk's
+    order, and none of YOLOv4's spans; the counter grows by the bytes the
+    plan's concats write, which is the reference's count of concat
+    elements."""
     c, plan, tree, x = small
     model = _predictor(c, tree).model
     before = profiling.concat_bytes
@@ -370,7 +372,10 @@ def test_spans_per_forward_and_the_concat_counter(small):
         t0 = profiling.time.perf_counter()
         model(x)
     names = [s.name for s in profiling.spans(since=t0)]
-    assert names == ["forward.elan"] * 4 + ["forward.sppcspc"] + ["forward.elan"] * 4
+    opens = {PlanELAN: ["forward.elan"], PlanMP: ["forward.pool"],
+             PlanSPPCSPC: ["forward.sppcspc", "forward.pool"]}
+    assert names == [n for e in model.plan for n in opens.get(type(e), [])]
+    assert names.count("forward.elan") == 8 and names.count("forward.pool") == 6
     counted = profiling.concat_bytes - before
     assert counted == _reckoned_concat_bytes(model.plan, SIZE, 4)
     assert counted == 4 * 4 * v7.concat_elements(c, SIZE)
@@ -475,7 +480,7 @@ def test_the_yolov7_cell_at_a_small_size(tmp_path, monkeypatch, variant):
     if variant == "program":
         metrics = result["metrics"]
         assert {"v7.mfu", "v7.elan_ms", "v7.sppcspc_ms", "v4.concat_mb", "offline.forward_ms",
-                "offline.postproc_ms", "offline.device_idle"} <= set(metrics)
+                "offline.postproc_ms", "offline.device_idle", "offline.pool_ms"} <= set(metrics)
         assert "v7.epilogue_roofline" not in metrics
         assert not {"v4.mfu", "v4.backbone_ms", "v4.spp_ms", "v4.neck_ms"} & set(metrics)
         batch = bench.mix(cell)["batch"]

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels import maxpool_kernel
 from ..ops.kernels.epilogue_kernel import conv_epilogue
 from ..utils import profiling
 
@@ -319,6 +320,29 @@ def upsample2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def pool_wins(x) -> bool:
+    """Whether a max pool of ``x`` runs as kernel K8: ``x`` bf16 on CUDA
+    with no gradient asked of it (K8 has no backward). K8 takes it in any
+    layout, width and size (``maxpool_kernel.apply_pyramid``,
+    ``apply_maxpool2x2``). CPU, float32, s8 codes and a trainable module
+    under autograd keep aten's pools."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and x.requires_grad))
+
+
+def maxpool_pyramid(x, windows):
+    """The stride-1 SAME max pools of ``windows`` (odd; 1 is ``x`` itself)
+    side by side along channels, in that order: SPP's ``[pool13, pool9,
+    pool5, x]`` and SPPCSPC's ``[x, pool5, pool9, pool13]``. K8's pyramid
+    where ``pool_wins(x)``, which reads the plane once and writes the
+    result itself, so no concat is counted; else aten's pools and their
+    ``cat_channels``. Runs inside the program span ``forward.pool``."""
+    with profiling.span("forward.pool"):
+        if pool_wins(x):
+            return maxpool_kernel.apply_pyramid(x, windows)
+        return cat_channels(maxpool_kernel.pyramid_parts(x, windows))
+
+
 def maxpool2d(x, kernel: int, stride: int):
     """NCHW max pool with the JAX ``maxpool2d`` padding: VALID for stride >
     1; SAME for stride 1, which pads k - 1 rows and columns, (k - 1) // 2
@@ -326,18 +350,22 @@ def maxpool2d(x, kernel: int, stride: int):
     torch's symmetric ``padding=`` cannot express it). Float tensors pad
     with -inf, integer tensors (the int8 path's s8 codes) with their dtype's
     minimum (``pool_valid``). Channels_last input gives channels_last
-    output. An odd window on a float tensor (YOLOv4's SPP pools at 5, 9 and
-    13) pads inside ``F.max_pool2d`` instead, implicitly -inf, which skips
-    the padding rather than comparing it: SPP at B=64, 608px took 2.7 ms on
-    an H100 this way and 6.1 ms with the explicit pad."""
-    if stride == 1:
-        before = (kernel - 1) // 2
-        after = kernel - 1 - before
-        if before == after and x.is_floating_point():
-            return F.max_pool2d(x, kernel, 1, padding=before)
-        fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
-        x = F.pad(x, (before, after, before, after), value=fill)
-    return pool_valid(x, kernel, stride)
+    output. What ``pool_wins`` takes runs as K8, whose 2x2 windows at stride
+    2 and 1 are all that the models pool with here (YOLOv7's MP, tiny's
+    pools); another window there raises. Runs inside the program span
+    ``forward.pool``."""
+    with profiling.span("forward.pool"):
+        if pool_wins(x):
+            if kernel != 2:
+                raise ValueError(f"maxpool2d: K8 pools bf16 on the card in 2x2 windows, "
+                                 f"got {kernel}x{kernel}")
+            return maxpool_kernel.apply_maxpool2x2(x, stride)
+        if stride == 1:
+            before = (kernel - 1) // 2
+            after = kernel - 1 - before
+            fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
+            x = F.pad(x, (before, after, before, after), value=fill)
+        return pool_valid(x, kernel, stride)
 
 
 def pool_valid(x, kernel: int, stride: int):

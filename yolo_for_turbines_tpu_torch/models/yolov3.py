@@ -61,6 +61,7 @@ from .blocks import (
     cat_channels,
     get_activation,
     maxpool2d,
+    maxpool_pyramid,
     residual_blocks,
     upsample2x,
 )
@@ -854,8 +855,9 @@ def _parts(plan, layers) -> tuple:
     """The walk's ``(span name, ((entry, layer), ...))`` parts: a plan with
     SPP in three, ``forward.backbone`` (everything before SPP: the stem,
     the stages to C5 and the three convs that feed SPP), ``forward.spp``
-    (the pools and their concat) and ``forward.neck`` (the rest, the heads
-    included); any other plan in one part that opens no span."""
+    (the pools and their concat, one ``maxpool_pyramid``) and
+    ``forward.neck`` (the rest, the heads included); any other plan in one
+    part that opens no span."""
     pairs = tuple(zip(plan, layers))
     at = next((i for i, e in enumerate(plan) if isinstance(e, PlanSPP)), None)
     if at is None:
@@ -875,7 +877,10 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     plan's three; none for any other plan); each ``PlanELAN`` runs inside
     ``forward.elan`` and each ``PlanSPPCSPC`` inside ``forward.sppcspc``, a
     ``PlanMP`` joins its named route. Every channel concat is counted in
-    ``utils/profiling.py::concat_bytes``.
+    ``utils/profiling.py::concat_bytes``, but for SPP's and SPPCSPC's pool
+    pyramids on the card, which K8 writes without one
+    (``blocks.maxpool_pyramid``). Every max pool runs inside a span
+    ``forward.pool`` of its own.
 
     With a ``layout``, ``rows`` says how each activation lies on the mesh;
     ``layout.constrain`` re-lays it where the height changes (the JAX
@@ -924,8 +929,7 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
                 elif isinstance(entry, PlanActivation):
                     act = get_activation(entry.name)
                 elif isinstance(entry, PlanSPP):
-                    x = cat_channels([maxpool2d(x, k, 1) for k in reversed(entry.kernels)]
-                                     + [x])
+                    x = maxpool_pyramid(x, tuple(reversed(entry.kernels)) + (1,))
                 elif isinstance(entry, PlanLateral):
                     x = cat_channels([layer(named[entry.route], act), upsample2x(x)])
                 elif isinstance(entry, PlanJoin):

@@ -15,9 +15,9 @@ k // 2, BN folded into a bias on the folded side, then SiLU.
   c), c), Conv1x1(maxpool2x2s2(x), c)]``, and the saved route ``route`` as a
   third part when one is named;
 - ``PlanSPPCSPC`` (``["sppcspc", c]``): the 5, 9 and 13 SAME pools inside a
-  CSP split, seven convs ``cv1`` ... ``cv7`` and two concats, in the order
-  of YOLOv7's ``common.py::SPPCSPC``: ``cat[x1, pool5(x1), pool9(x1),
-  pool13(x1)]``.
+  CSP split, seven convs ``cv1`` ... ``cv7``, the pools' pyramid and a
+  concat, in the order of YOLOv7's ``common.py::SPPCSPC``: ``cat[x1,
+  pool5(x1), pool9(x1), pool13(x1)]``, one ``blocks.maxpool_pyramid``.
 
 The weight tree of each holds its convs by their names in the module
 (``a``, ``b``, ``chain[j]``, ``fuse``; ``pool``, ``reduce``, ``down``;
@@ -31,7 +31,7 @@ from typing import ClassVar, Optional, Tuple
 
 import torch.nn as nn
 
-from .blocks import cat_channels, maxpool2d
+from .blocks import cat_channels, maxpool2d, maxpool_pyramid
 
 # which chain outputs each ELAN form's concat joins, deepest first (1-4;
 # 0 would be b, which always joins after them)
@@ -123,6 +123,6 @@ class SPPCSPC(nn.Module):
 
     def forward(self, x, act):
         x1 = self.cv4(self.cv3(self.cv1(x, act), act), act)
-        pooled = cat_channels([x1] + [maxpool2d(x1, k, 1) for k in SPP_POOLS])
+        pooled = maxpool_pyramid(x1, (1,) + SPP_POOLS)
         y1 = self.cv6(self.cv5(pooled, act), act)
         return self.cv7(cat_channels([y1, self.cv2(x, act)]), act)

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "int8_epilogue_launch": ([_P] * 9 + [ctypes.c_longlong, _I, _I, _P], _I),
     # x, w, out, batch, H, W, C, cout, kernel, stride, stream
     "int8_conv_launch": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    # x, out, windows, slots, batch, H, W, C, stream
+    "maxpool_pyramid_launch": ([_P, _P, ctypes.POINTER(_I)] + [_I] * 5 + [_P], _I),
+    # x, out, batch, H, W, C, stride, stream
+    "maxpool2x2_launch": ([_P, _P] + [_I] * 5 + [_P], _I),
 }
 
 

@@ -17,7 +17,8 @@ that ``spans()`` reads. Nothing is written out on the way.
 ``concat_bytes`` counts the bytes that the folded and the trainable
 forward's channel concats write (``models/blocks.py::cat_channels``: the
 walk's upsample, lateral, join and SPP concats, every CSP stage's and
-YOLOv7's ELAN, MP and SPPCSPC concats), from
+YOLOv7's ELAN, MP and SPPCSPC concats; on the card kernel K8 writes SPP's
+and SPPCSPC's pool pyramids without a concat, ``blocks.maxpool_pyramid``), from
 the process's start, like the kernels' ``launches`` counters: one integer
 add per concat, with or without a profiler.
 
