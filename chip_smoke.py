@@ -79,6 +79,22 @@ Phases, one JSON line each:
           (pool_wins patched) against the unpatched one in the same
           process: heads equal; alone, with the env and build lines:
           python3 -c "import chip_smoke; chip_smoke.k8_alone()";
+  rtdetr  RT-DETR-R50's kernel paths: K5's ReLU and its add-first order
+          (a bottleneck's shortcut joins before its ReLU) bit for bit
+          against the plain version at every width phase k5 checks and at
+          misaligned views, timed at ResNet-50-vd's stage outputs at 640px,
+          B = 64; K8's 3x3 stride-2 pad-1 pool (the stem's) against aten by
+          value with NaN and -inf planted (320x320x64, odd sides, a width
+          padded to 8), timed at 320x320x64, B = 64, beside aten's; then the
+          rtdetr cell's driver at 640px and B = 8 (its seeded weights folded
+          by the program): 85 K5, 1 K8, 0 K1 launches and 1,382,400
+          deformable samples per predict_batch, rows (8, 300, 6), and the
+          cell's four numbers against the reference; K9 (the deformable
+          sampling core) against its plain version at 8,400 tokens, 300
+          queries, B = 2 and 64 (within one bf16 rounding), timed at B = 64
+          beside the plain version, a bf16-grid grid_sample and its byte
+          bound, its registers; 6 K9 launches per predict_batch; alone:
+          python3 -c "import chip_smoke; chip_smoke.rtdetr_alone()";
   main    the 80-class Darknet-53 at 416px from seeded random weights, bf16:
           predict_images, predict_image, predict_batch at B = 8 and 128;
           K5 exactly 59 times per predict_batch at B = 8 and 128;
@@ -343,6 +359,18 @@ K8_PER_CALL = {"yolov4": 1, "yolov7": 6}
 K8_BANDED = ((86, 86, 64, (13, 9, 5, 1)), (160, 160, 8, (1, 5, 9, 13)),
              (40, 558, 16, (13, 9, 5, 1)))
 K8_STRIDE1 = ((13, 512),)
+# K5 launches per bf16 RT-DETR-R50 predict_batch (any size): the backbone's
+# 55 folded convs (stem 3, bottlenecks 48, shortcuts 4), the encoder's 27,
+# the decoder's 3 input projections
+K5_PER_CALL_RTDETR = 85
+# K5's add-first order and ReLU, timed at B = 64: (H = W, C) of ResNet-50-vd's
+# stage outputs at 640px (a bottleneck's last conv, its shortcut added
+# before the ReLU)
+K5_FIRST_TIMED = ((160, 256), (80, 512), (40, 1024), (20, 2048))
+# K8's 3x3 stride-2 pad-1 pool: (H, W, C) checked at B = 2 with NaN and -inf
+# planted (the stem's input at 640px, odd sides, a width padded to 8) and
+# timed at B = 64 (the first)
+K8_STEM = ((320, 320, 64), (7, 9, 8), (5, 5, 21), (1, 1, 16))
 # K6's timed shapes, Darknet-53 at 416px, B = 128: (H = W, C, residual) of
 # the stem conv, a 208x208 residual block's 3x3 (the block's input added),
 # a 52x52 1x1 and the 13x13 neck's 3x3
@@ -416,7 +444,8 @@ TRAIN_STEPS = 20
 # 1e-3 to the JAX run's mAP (phase converge; PERF.md)
 TRAIN_IMAGES = 96
 TRAIN_LR = 2e-4
-TRAIN_DIR = Path(__file__).resolve().parent / "_smoke"
+ROOT = Path(__file__).resolve().parent
+TRAIN_DIR = ROOT / "_smoke"
 
 
 def emit(obj) -> None:
@@ -1328,7 +1357,7 @@ def phase_k8(dev):
     require(per_call == K8_PER_CALL, f"K8 launches per predict_batch {per_call}, not "
                                      f"{K8_PER_CALL}")
     require(heads_equal, "YOLOv7's heads differ with aten's pools")
-    require(len(out["res_usage"]) == 2 and all(
+    require(len(out["res_usage"]) == 3 and all(
         r["STACK"] == "0" and r["LOCAL"] == "0" for r in out["res_usage"].values()),
         f"K8's kernels spill or are missing: {out['res_usage']}")
     first = out["timed"][0]
@@ -1337,6 +1366,189 @@ def phase_k8(dev):
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "timed": out["timed"], "least_share_of_bound": worst["share_of_bound"],
             "per_call": per_call}
+
+
+def phase_rtdetr(dev):
+    """RT-DETR-R50's new kernel paths and the model on the card: K5's ReLU
+    and add-first order against its plain version, bit for bit, at every
+    width K5 is checked at (misaligned views too) and timed at ResNet-50-vd's
+    stage outputs at B = 64; K8's 3x3 stride-2 pool against aten by value
+    (NaN and -inf planted; odd sides; a width padded to 8) and timed at the
+    stem's 320x320x64 at B = 64; then the cell's driver at 640px and B = 8
+    (its seeded, calibrated weights, folded by the program): K5, K8, K1
+    launches and deformable samples per ``predict_batch``, and the cell's
+    four numbers against the reference, each within the cell's limit."""
+    import perfbench.drivers.offline_rtdetr as drv
+    from perfbench.manifest import Bench
+    from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
+    from yolo_for_turbines_tpu_torch.ops.kernels import maxpool_kernel as mk
+    from yolo_for_turbines_tpu_torch.ops.kernels import nms_kernel
+    from yolo_for_turbines_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    out = {"phase": "rtdetr", "checks": [], "timed": []}
+
+    def k5_first(y, bias, skip, what):
+        got = ek.conv_epilogue(y.clone(memory_format=torch.channels_last), bias, "relu", skip,
+                               add_first=True)
+        want = ek.conv_epilogue_reference(y, bias, "relu", skip, add_first=True)
+        ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        out["checks"].append({"case": f"K5 relu add-first {what}", "bit_for_bit": ok})
+        if not ok:
+            emit(out)
+            raise AssertionError(f"K5's add-first ReLU differs from plain at {what}")
+
+    for h, w, c in K5_CHECKED:
+        for with_skip in (False, True):
+            y, bias, skip = k5_inputs(2, h, w, c, gen, dev, with_skip)
+            k5_first(y, bias, skip, f"2x{h}x{w}x{c} skip {with_skip}")
+            got = ek.conv_epilogue(y.clone(memory_format=torch.channels_last), bias, "relu", skip)
+            ok = torch.equal(got.view(torch.int16),
+                             ek.conv_epilogue_reference(y, bias, "relu", skip).view(torch.int16))
+            out["checks"].append({"case": f"K5 relu 2x{h}x{w}x{c} skip {with_skip}",
+                                  "bit_for_bit": ok})
+            require(ok, f"K5's ReLU differs from plain at 2x{h}x{w}x{c}")
+    n = 2 * 13 * 13 * 64
+    for which in ("y", "skip"):
+        y, bias, skip = k5_inputs(2, 13, 13, 64, gen, dev, True)
+        base = torch.empty(n + 8, dtype=torch.bfloat16, device=dev)
+        view = base[1:n + 1].view(2, 13, 13, 64).permute(0, 3, 1, 2)
+        view.copy_(y if which == "y" else skip)
+        k5_first(*((view, bias, skip) if which == "y" else (y, bias, view)), f"{which} misaligned")
+    for hw, c in K5_FIRST_TIMED:
+        y, bias, skip = k5_inputs(64, hw, hw, c, gen, dev, True)
+        nbytes = y.numel() * 2 * 3 + c * 2
+        copies = [y.clone(memory_format=torch.channels_last)
+                  for _ in range(max(1, -(-int(150e6) // nbytes)))]
+        turn = iter(range(1 << 30))
+        ms = cuda_ms(lambda: ek.conv_epilogue(copies[next(turn) % len(copies)], bias, "relu",
+                                              skip, add_first=True), 50)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out["timed"].append({"kernel": "K5 relu add-first", "shape": f"64x{hw}x{hw}x{c}",
+                             "ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms})
+        del y, skip, copies
+    torch.cuda.empty_cache()
+
+    cpu = torch.Generator().manual_seed(SEED + 26)
+    mk.launches = 0
+    for h, w, c in K8_STEM:
+        for b in (2, 64) if (h, w) == (320, 320) else (2,):
+            x = torch.randn((b, c, h, w), generator=cpu).to(torch.bfloat16).to(dev)
+            x = x.contiguous(memory_format=torch.channels_last)
+            if b == 2:
+                x = k8_planted(x, cpu)
+            ok = same_values(mk.apply_maxpool3x3s2(x), mk.maxpool3x3s2_reference(x))
+            out["checks"].append({"case": f"K8 3x3s2 {b}x{h}x{w}x{c}", "equal_by_value": ok})
+            if not ok:
+                emit(out)
+                raise AssertionError(f"K8's 3x3 stride-2 pool differs from aten at {h}x{w}x{c}")
+    x = torch.randn((64, 64, 320, 320), device=dev, generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    ms = cuda_ms(lambda: mk.maxpool3x3s2(x), 50)
+    aten_ms = cuda_ms(lambda: mk.maxpool3x3s2_reference(x), 20)
+    bound_ms = x.numel() * 2 * 1.25 / HBM_BYTES_PER_S * 1e3
+    out["timed"].append({"kernel": "K8 3x3s2", "shape": "64x320x320x64", "ms": ms,
+                         "aten_ms": aten_ms, "bound_ms": bound_ms,
+                         "share_of_bound": bound_ms / ms})
+    del x
+    torch.cuda.empty_cache()
+
+    # K9 against its plain version (bf16 values cast to float32 beside the
+    # float32 grid) at the cell's shapes, and against bf16 values sampled at
+    # a bf16 grid (grid_sample's one dtype, the other way round); the
+    # kernel's time at B = 64 beside the plain version's and its byte bound
+    from yolo_for_turbines_tpu_torch.ops.kernels import deform_kernel as dk
+
+    shapes = [(80, 80), (40, 40), (20, 20)]
+    for b in (2, 64):
+        value = torch.randn((b, 8400, 256), device=dev, generator=gen).to(torch.bfloat16)
+        loc = torch.rand((b, 300, 8, 3, 4, 2), device=dev, generator=gen) * 1.2 - 0.1
+        weights = torch.softmax(torch.randn((b, 300, 8, 12), device=dev, generator=gen), -1)
+        got = dk.deform_attention(value, shapes, loc, weights).float()
+        want = dk.deform_attention_reference(value, shapes, loc, weights)
+        err = float((got - want).norm() / want.norm())
+        worst = float(((got - want).abs() / (want.abs() + 1e-3)).max())
+        ok = bool(((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-5).all())
+        out["checks"].append({"case": f"K9 {b}x8400x256, 300 queries", "rel_rms": err,
+                              "worst_rel": worst, "within_a_bf16_rounding": ok})
+        if not ok:
+            emit(out)
+            raise AssertionError(f"K9 differs from its plain version at B = {b}: {err}")
+
+    def bf16_grid():
+        grids = (2 * loc - 1).to(torch.bfloat16).permute(0, 2, 3, 1, 4, 5).reshape(
+            512, 3, 300, 4, 2)
+        sampled, at = [], 0
+        for lvl, (h, w) in enumerate(shapes):
+            v = value[:, at : at + h * w].view(64, h, w, 8, 32).permute(0, 3, 1, 2, 4)
+            v = v.reshape(512, h, w, 32).permute(0, 3, 1, 2)
+            sampled.append(torch.nn.functional.grid_sample(
+                v, grids[:, lvl], mode="bilinear", padding_mode="zeros", align_corners=False))
+            at += h * w
+        w_ = weights.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(512, 1, 300, 12)
+        return (torch.stack(sampled, -2).flatten(-2) * w_).sum(-1)
+
+    bf16_out = bf16_grid().view(64, 256, 300).permute(0, 2, 1).float()
+    nbytes = value.numel() * 2 + loc.numel() * 4 + weights.numel() * 4 + 64 * 300 * 256 * 2
+    k9_ms = cuda_ms(lambda: dk.deform_attention(value, shapes, loc, weights), 50)
+    plain_ms = cuda_ms(lambda: dk.deform_attention_reference(value, shapes, loc, weights), 20)
+    out["k9_per_layer_B64"] = {
+        "ms": k9_ms, "plain_ms": plain_ms, "bf16_grid_ms": cuda_ms(bf16_grid, 20),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "share_of_bound": nbytes / HBM_BYTES_PER_S * 1e3 / k9_ms,
+        "bf16_grid_rel_rms_from_plain": float((bf16_out - want).norm() / want.norm())}
+    out["res_usage_k9"] = res_usage("deform")
+    del value, loc, weights, got, want, bf16_out
+    torch.cuda.empty_cache()
+
+    bench = Bench.load(ROOT / "BENCHMARK.json")
+    cell = bench.cell("rtdetr-coco640-offline-bf16")
+    mix = {**bench.mix(cell), "batch": 8, "pool": 1, "check_batches": 1, "check_within": 1}
+    t0 = time.perf_counter()
+    driver = drv.Driver(bench.config(cell), mix, 2**31 + 26, dev)
+    out["setup_s"] = time.perf_counter() - t0
+    per_call = []
+    for i in range(2):
+        ek.launches = mk.launches = nms_kernel.launches = dk.launches = 0
+        profiling.deform_samples = 0
+        driver.step(i)
+        torch.cuda.synchronize()
+        per_call.append({"conv_epilogue": ek.launches, "maxpool": mk.launches,
+                         "greedy_nms": nms_kernel.launches, "deform_attention": dk.launches,
+                         "deform_samples": profiling.deform_samples})
+    out["launches_per_predict_batch"] = per_call
+    kept, mask = driver.outputs[0]
+    out["rows"], out["kept_rows_per_image"] = list(kept.shape), float(mask.float().sum(1).mean())
+    driver.release()
+    out["cell_checks_B8"] = driver.check()
+    emit(out)
+    want_samples = 8 * 300 * 8 * 3 * 4 * 6
+    require(kept.shape == (8, 300, 6) and mask.shape == (8, 300)
+            and bool(torch.isfinite(kept).all()), "RT-DETR rows misshapen or not finite")
+    require(all(c["conv_epilogue"] == K5_PER_CALL_RTDETR and c["maxpool"] == 1
+                and c["greedy_nms"] == 0 and c["deform_attention"] == 6
+                and c["deform_samples"] == want_samples for c in per_call),
+            f"RT-DETR launches per predict_batch {per_call}: K5 not {K5_PER_CALL_RTDETR}, "
+            f"K8 not 1, K9 not 6, K1 launched, or samples not {want_samples}")
+    for name, limit in bench.limits(cell).items():
+        value = out["cell_checks_B8"][name]
+        require(value is not None and value <= limit,
+                f"RT-DETR's {name} at B = 8 is {value}, above the cell's limit {limit}")
+    return per_call[0]
+
+
+def rtdetr_alone() -> None:
+    """The env and build lines, then phase rtdetr, on the first card, TF32
+    off as in ``main``."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_rtdetr(torch.device("cuda", 0))
 
 
 def k8_alone() -> None:
@@ -3596,6 +3808,7 @@ def main() -> int:
     k8 = phase_k8(dev)
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     k5_yolov7, k8_yolov7 = phase_yolov7(dev)
+    rtdetr = phase_rtdetr(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)
@@ -3669,7 +3882,8 @@ def main() -> int:
          "source": "yolo_for_turbines_tpu_torch/csrc/epilogue.cu", "replaces": None,
          "launches_by_path": {"main_per_predict_batch": K5_PER_CALL,
                               "main_f32": launches_f32["conv_epilogue"],
-                              "yolov7_per_predict_batch": k5_yolov7},
+                              "yolov7_per_predict_batch": k5_yolov7,
+                              "rtdetr_per_predict_batch": rtdetr["conv_epilogue"]},
          **k5},
         # replaces no TPU kernel: XLA fused the int8 epilogue into its conv
         {"name": "int8_epilogue", "route": "cuda",
@@ -3686,8 +3900,13 @@ def main() -> int:
         {"name": "maxpool", "route": "cuda",
          "source": "yolo_for_turbines_tpu_torch/csrc/maxpool.cu", "replaces": None,
          "launches_by_path": {"yolov4_per_predict_batch": k8.pop("per_call")["yolov4"],
-                              "yolov7_per_predict_batch": k8_yolov7},
+                              "yolov7_per_predict_batch": k8_yolov7,
+                              "rtdetr_per_predict_batch": rtdetr["maxpool"]},
          **k8},
+        # replaces no TPU kernel: the JAX package has no deformable attention
+        {"name": "deform_attention", "route": "cuda",
+         "source": "yolo_for_turbines_tpu_torch/csrc/deform.cu", "replaces": None,
+         "launches_by_path": {"rtdetr_per_predict_batch": rtdetr["deform_attention"]}},
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,13 @@
+"""Device time per batch of the work launched inside the program's span
+``detr.encoder``, which ``models/yolov3.py::_walk`` opens once per RT-DETR
+forward around the encoder (``models/rtdetr.py``); None where the program
+opens no such span."""
+
+NAME = "detr.encoder"
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.count(NAME) or not t.count("model.forward"):
+        return None
+    return 1e3 * t.busy_s(inside=NAME) / t.count("model.forward")

@@ -290,7 +290,7 @@ def test_wrapper_rejects_bad_input(case):
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     y, b = _nhwc((2, 16, 3, 3), 53), _bf16((16,), 54)
     with pytest.raises(ValueError, match="unsupported activation"):
-        ek.conv_epilogue(y, b, "relu")
+        ek.conv_epilogue(y, b, "gelu")
     # off the CPU only bf16, and only on CUDA: no silent fallback
     meta = torch.empty((2, 16, 3, 3), device="meta").contiguous(memory_format=CL)
     with pytest.raises(ValueError, match="takes bf16"):
@@ -340,3 +340,99 @@ def test_silu_kernel_on_a_misaligned_view(card):
     view = base[1:y.numel() + 1].view(2, 5, 5, 64).permute(0, 3, 1, 2).copy_(y)
     got = ek.conv_epilogue(view, bias, "silu")
     assert torch.equal(got, ek.conv_epilogue_reference(y, bias, "silu"))
+
+
+# ---------------------------------------------------------------------------
+# ReLU and the add-first order (RT-DETR's ResNet-vd bottlenecks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [64, 21, 255])
+@pytest.mark.parametrize("add_first", [False, True])
+@pytest.mark.parametrize("activation", ["relu", "identity"])
+def test_plain_relu_and_add_first_round_once(activation, add_first, c):
+    """``act(y + bias + skip)`` (or ``skip + act(y + bias)``) in f32,
+    rounded once: within half a bf16 step of the float64 value plus f32's
+    own error; a NaN passes and a negative sum gives +0."""
+    y, skip = _nhwc((2, c, 3, 5), 70), _nhwc((2, c, 3, 5), 71)
+    bias = _bf16((c,), 72, 0.5)
+    got = ek.conv_epilogue_reference(y, bias, activation, skip, add_first=add_first).double()
+    t = y.double() + bias.double()[:, None, None]
+    act = (lambda v: v.clamp(min=0)) if activation == "relu" else (lambda v: v)
+    want = act(t + skip.double()) if add_first else skip.double() + act(t)
+    assert bool(((got - want).abs() <= _half_step(want) + 1e-6 * want.abs()).all())
+    y[0, 0, 0, 0] = float("nan")
+    out = ek.conv_epilogue_reference(y, bias, "relu", skip, add_first=add_first)
+    assert torch.isnan(out[0, 0, 0, 0])
+
+
+def test_add_first_takes_identity_and_relu_alone():
+    y = _nhwc((1, 8, 2, 2), 73)
+    for activation in ("leaky_relu", "mish", "silu"):
+        with pytest.raises(ValueError, match="add-first"):
+            ek.conv_epilogue(y, _bf16((8,), 74), activation, y.clone(memory_format=CL),
+                             add_first=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_conv_adds_first_off_the_card(dtype):
+    """``FoldedConv(x, relu, skip=s, add_first=True)`` off the card is the
+    composition ``relu(conv(x) + b + s)``, and ``ConvBlock``'s the same."""
+    gen = torch.Generator().manual_seed(75)
+    conv = tblocks.FoldedConv(8, 16, 1)
+    conv.weight.data.normal_(generator=gen)
+    conv.bias.data.normal_(generator=gen)
+    conv = conv.to(dtype)
+    x = torch.randn(2, 8, 5, 5, generator=gen).to(dtype)
+    s = torch.randn(2, 16, 5, 5, generator=gen).to(dtype)
+    got = conv(x, tblocks.relu, skip=s, add_first=True)
+    want = F.relu(F.conv2d(x, conv.weight, conv.bias) + s)
+    assert torch.equal(got, want)
+    assert torch.equal(conv(x, tblocks.relu, skip=s), s + F.relu(F.conv2d(x, conv.weight,
+                                                                          conv.bias)))
+    block = tblocks.ConvBlock(8, 16, 1, generator=gen).eval().to(dtype)
+    y = block.bn(block.conv(x))
+    assert torch.equal(block(x, tblocks.relu, skip=s, add_first=True), F.relu(y + s))
+
+
+def test_relu_routes_to_the_kernel():
+    assert tblocks.EPILOGUE_ACTIVATIONS[tblocks.relu] == "relu"
+    assert ek.ACT_CODES["relu"] == 4 and ek.ADD_FIRST == 16
+    source = (kernels.CSRC_DIR / "epilogue.cu").read_text()
+    assert "kRelu = 4" in source and "kAddFirst = 16" in source
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 21, 32, 64, 255, 512, 1023, 2056])
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("add_first", [False, True])
+def test_relu_kernel_equals_the_plain_version(card, c, with_skip, add_first):
+    """K5 under ReLU, in both orders, against ``conv_epilogue_reference`` on
+    the card: the same bits at every width (heads' odd widths wrap a vector
+    across rows)."""
+    y = _nhwc((3, c, 7, 9), 80).to(card)
+    bias = _bf16((c,), 81, 0.5).to(card)
+    skip = _nhwc((3, c, 7, 9), 82).to(card) if with_skip else None
+    before = ek.launches
+    got = ek.conv_epilogue(y.clone(memory_format=CL), bias, "relu", skip, add_first=add_first)
+    assert ek.launches == before + 1
+    want = ek.conv_epilogue_reference(y, bias, "relu", skip, add_first=add_first)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["y", "skip"])
+def test_add_first_kernel_on_a_misaligned_view(card, which):
+    """A view one element into its storage takes the one-element variant."""
+    y = _nhwc((2, 64, 5, 5), 83).to(card)
+    skip = _nhwc((2, 64, 5, 5), 84).to(card)
+    bias = _bf16((64,), 85, 0.5).to(card)
+    base = torch.empty(y.numel() + 8, dtype=torch.bfloat16, device=card)
+    view = base[1:y.numel() + 1].view(2, 5, 5, 64).permute(0, 3, 1, 2).copy_(
+        y if which == "y" else skip)
+    want = ek.conv_epilogue_reference(y, bias, "relu", skip, add_first=True)
+    if which == "y":
+        got = ek.conv_epilogue(view, bias, "relu", skip, add_first=True)
+    else:
+        got = ek.conv_epilogue(y.clone(memory_format=CL), bias, "relu", view, add_first=True)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -520,3 +520,105 @@ def test_card_launches_per_predict_batch_and_heads(card, family, monkeypatch):
         aten = pred.model(x)
     torch.cuda.synchronize()
     assert all(_same_values(a, b) for a, b in zip(heads, aten))
+
+
+# ---------------------------------------------------------------------------
+# The 3x3 stride-2 pad-1 pool (RT-DETR's ResNet-vd stem)
+# ---------------------------------------------------------------------------
+
+
+def _k8_3x3s2(x):
+    """K8's 3x3 stride-2 pass: the nine cells of each window, the rows and
+    columns outside the plane replaced by the window's centre row and
+    column (inside the plane), which leave the max as it is."""
+    h, w = x.shape[2], x.shape[3]
+    ci, cj = torch.arange(0, h, 2), torch.arange(0, w, 2)
+    out = None
+    for di in (-1, 0, 1):
+        rows = torch.where((ci + di >= 0) & (ci + di < h), ci + di, ci)
+        for dj in (-1, 0, 1):
+            cols = torch.where((cj + dj >= 0) & (cj + dj < w), cj + dj, cj)
+            v = x[:, :, rows][:, :, :, cols]
+            out = v if out is None else torch.maximum(out, v)
+    return out.contiguous(memory_format=CL)
+
+
+@pytest.mark.parametrize("c", [8, 64, 12])
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (5, 7), (13, 13), (20, 21), (320, 16)])
+def test_plain_3x3s2_is_the_aten_pool_and_the_kernels_pass(h, w, c):
+    """The plain version is aten's padded pool, and K8's pass (clamped
+    rows and columns) gives its values, NaN and -inf planted."""
+    x = _planted(_nhwc(2, c, h, w, h * 31 + w + c, torch.float32), c)
+    want = F.max_pool2d(x, 3, 2, 1)
+    assert tuple(want.shape[2:]) == ((h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    assert _same_values(mk.maxpool3x3s2(x), want)
+    assert _same_values(mk.maxpool3x3s2_reference(x), want)
+    assert _same_values(_k8_3x3s2(x), want)
+
+
+def test_the_stem_pool_pads_with_minus_infinity():
+    """Every value negative: a zero pad would show at the plane's edges."""
+    x = -1 - torch.rand(1, 8, 6, 6)
+    got = blocks.maxpool3x3s2(x)
+    assert bool((got < -1).all()) and got[0, 0, 0, 0] == x[0, 0, :2, :2].max()
+
+
+def test_the_card_route_pools_the_stem_in_k8(monkeypatch):
+    """On the card's route ``maxpool3x3s2`` launches K8 through the router
+    (any layout and width), inside ``forward.pool``; elsewhere aten's."""
+    x = _nhwc(1, 8, 6, 6, 0, torch.float32)
+    calls = []
+    monkeypatch.setattr(blocks, "pool_wins", lambda t: True)
+    monkeypatch.setattr(mk, "apply_maxpool3x3s2", lambda t: calls.append(t.shape) or t)
+    blocks.maxpool3x3s2(x)
+    assert calls == [x.shape]
+    monkeypatch.undo()
+    before = mk.launches
+    assert torch.equal(blocks.maxpool3x3s2(x), F.max_pool2d(x, 3, 2, 1)) and mk.launches == before
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t0 = profiling.time.perf_counter()
+        blocks.maxpool3x3s2(x)
+    assert [s.name for s in profiling.spans(since=t0)] == ["forward.pool"]
+
+
+def test_the_stem_pool_launcher_is_declared_as_the_library_binds_it():
+    source = (kernels.CSRC_DIR / "maxpool.cu").read_text()
+    found = re.search(r'extern "C" int maxpool3x3s2_launch\(([^)]*)\)', source)
+    assert found
+    params = [p.strip() for p in found.group(1).split(",")]
+    argtypes, _ = kernels._SIGNATURES["maxpool3x3s2_launch"]
+    assert len(params) == len(argtypes)
+    for param, argtype in zip(params, argtypes):
+        assert ("*" in param) == (argtype is ctypes.c_void_p), param
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 64])
+@pytest.mark.parametrize("h,w,c", [(320, 320, 64), (7, 9, 8), (1, 1, 16), (40, 40, 256)])
+def test_card_3x3s2_equals_aten(card, h, w, c, batch):
+    """K8's 3x3 stride-2 pool against aten's by value (the stem's 320x320x64
+    at 640px, odd sides), NaN and -inf planted at B = 2: one launch."""
+    x = _nhwc(batch, c, h, w, h + w + c + batch, device=card)
+    if batch == 2:
+        x = _planted(x, h)
+    before = mk.launches
+    got = mk.maxpool3x3s2(x)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    assert got.is_contiguous(memory_format=CL)
+    assert _same_values(got, mk.maxpool3x3s2_reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 12, 64])
+@pytest.mark.parametrize("layout", ["nchw", "misaligned"])
+def test_card_3x3s2_router_takes_any_layout_and_width(card, c, layout):
+    x = _planted(_nhwc(2, c, 11, 10, c, device=card), 5)
+    if layout == "nchw":
+        x = x.contiguous()
+    else:
+        base = torch.empty(x.numel() + 8, dtype=x.dtype, device=card)
+        x = base[1 : x.numel() + 1].view(2, 11, 10, c).permute(0, 3, 1, 2).copy_(x)
+    got = mk.apply_maxpool3x3s2(x)
+    assert _same_values(got, mk.maxpool3x3s2_reference(x))
+    assert got.is_contiguous() == (layout == "nchw")

@@ -94,9 +94,10 @@ def grid_sizes_for(image_size: int, strides: Sequence[int] = STRIDES) -> tuple:
 def strides_for(backbone: str) -> tuple:
     """Output strides of a backbone's heads: two scales for ``yolov3_tiny``,
     three for the others (as the JAX package's ``load_predictor`` sets
-    them), finest first for ``yolov4`` and ``yolov7``."""
+    them), finest first for ``yolov4``, ``yolov7`` and ``rtdetr_r50vd``
+    (RT-DETR's three feature levels)."""
     return {"yolov3_tiny": (32, 16), "yolov4": (8, 16, 32),
-            "yolov7": (8, 16, 32)}.get(backbone, STRIDES)
+            "yolov7": (8, 16, 32), "rtdetr_r50vd": (8, 16, 32)}.get(backbone, STRIDES)
 
 
 def anchors_array(anchors=ANCHORS) -> np.ndarray:
@@ -155,7 +156,7 @@ class ModelConfig:
     num_classes: int = NUM_COCO_CLASSES
     in_channels: int = 3
     activation: str = "leaky_relu"  # or "mish", or "silu" (YOLOv7)
-    # or "cspdarknet53", "yolov3_tiny", "yolov4" or "yolov7"
+    # or "cspdarknet53", "yolov3_tiny", "yolov4", "yolov7" or "rtdetr_r50vd"
     backbone: str = "darknet53"
     anchors_per_scale: int = 3
     # Output stride per detection scale, coarsest first.

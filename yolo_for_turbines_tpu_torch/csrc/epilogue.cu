@@ -1,7 +1,10 @@
 // The epilogue of a folded conv in one pass, in place on the conv's bf16
 // output y (NHWC memory: rows = B*H*W, C channels):
 //     y[r, c] = bf16(skip[r, c] + act(float(y[r, c]) + float(bias[c])))
-// with act identity, leaky_relu(0.1), mish or silu, and skip optional.
+// with act identity, leaky_relu(0.1), mish, silu or relu, and skip
+// optional; or, in the add-first order (a ResNet bottleneck's last conv,
+// whose shortcut joins before its ReLU),
+//     y[r, c] = bf16(act(float(y[r, c]) + float(bias[c]) + float(skip[r, c]))).
 //
 // Replaces no TPU kernel: on the TPU, XLA fused the bias, the activation
 // and the residual add into its convolution. On the card cuDNN computes the
@@ -32,7 +35,10 @@
 // with _rn intrinsics so that nvcc contracts no multiply and add into an
 // FMA; leaky and identity equal it bit for bit; mish calls tanhf, log1pf
 // and expf, as torch's CUDA mish does; silu is torch's CUDA silu, x / (1 +
-// expf(-x)) with an IEEE division (no fast math on either side).
+// expf(-x)) with an IEEE division (no fast math on either side); relu is
+// the plain version's where(t < 0, 0, t), so a NaN and a -0 pass as they
+// are. The add-first order adds the bias, then the skip, then activates,
+// each add rounded once in f32, as the plain version.
 //
 // K6, further down, is the same pass for an int8 conv (models/quantize.py):
 // from the conv's i32 output to the next layer's s8 codes.
@@ -48,18 +54,24 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // vectors in flight per thread
 constexpr int kMaxDevices = 64;
 
-enum Act { kIdentity = 0, kLeaky = 1, kMish = 2, kSilu = 3 };
+enum Act { kIdentity = 0, kLeaky = 1, kMish = 2, kSilu = 3, kRelu = 4 };
+// or'd into `act`: the skip joins before the activation
+constexpr int kAddFirst = 16;
 
 template <int kAct>
 __device__ __forceinline__ float activate(float t) {
     if (kAct == kLeaky) return t > 0.f ? t : __fmul_rn(t, 0.1f);
     if (kAct == kMish) return __fmul_rn(t, tanhf(log1pf(expf(t))));
     if (kAct == kSilu) return __fdiv_rn(t, __fadd_rn(1.f, expf(-t)));
+    if (kAct == kRelu) return t < 0.f ? 0.f : t;
     return t;
 }
 
-template <int kAct, bool kSkip>
+template <int kAct, bool kSkip, bool kFirst = false>
 __device__ __forceinline__ float epilogue(__nv_bfloat16 y, float b, __nv_bfloat16 s) {
+    if (kFirst) {
+        return activate<kAct>(__fadd_rn(__fadd_rn(__bfloat162float(y), b), __bfloat162float(s)));
+    }
     const float out = activate<kAct>(__fadd_rn(__bfloat162float(y), b));
     return kSkip ? __fadd_rn(out, __bfloat162float(s)) : out;
 }
@@ -76,7 +88,7 @@ struct Pack<1> {
     using T = __nv_bfloat16;
 };
 
-template <int kVec, int kAct, bool kSkip>
+template <int kVec, int kAct, bool kSkip, bool kFirst = false>
 __device__ __forceinline__ typename Pack<kVec>::T apply(typename Pack<kVec>::T y, const float* b,
                                                         typename Pack<kVec>::T s) {
     typename Pack<kVec>::T out;
@@ -85,14 +97,14 @@ __device__ __forceinline__ typename Pack<kVec>::T apply(typename Pack<kVec>::T y
     auto* ov = reinterpret_cast<__nv_bfloat16*>(&out);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-        ov[j] = __float2bfloat16_rn(epilogue<kAct, kSkip>(yv[j], b[j], sv[j]));
+        ov[j] = __float2bfloat16_rn(epilogue<kAct, kSkip, kFirst>(yv[j], b[j], sv[j]));
     }
     return out;
 }
 
 // n elements; `stride` threads take part, a multiple of the channel period,
 // and thread t handles vectors t, t + stride, t + 2 * stride, ...
-template <int kVec, int kAct, bool kSkip>
+template <int kVec, int kAct, bool kSkip, bool kFirst = false>
 __global__ void __launch_bounds__(kThreads)
 conv_epilogue_kernel(__nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ skip, long long n, int c, long long stride,
@@ -124,13 +136,16 @@ conv_epilogue_kernel(__nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restr
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
             const long long v = base + u * stride;
-            if (v < n_vec) yp[v] = apply<kVec, kAct, kSkip>(yv[u], b, kSkip ? sv[u] : yv[u]);
+            if (v < n_vec) {
+                yp[v] = apply<kVec, kAct, kSkip, kFirst>(yv[u], b, kSkip ? sv[u] : yv[u]);
+            }
         }
     }
     if (kVec > 1 && tid == 0) {  // the last n % kVec elements
         for (long long e = n_vec * kVec; e < n; ++e) {
             const float be = __bfloat162float(bias[e % c]);
-            y[e] = __float2bfloat16_rn(epilogue<kAct, kSkip>(y[e], be, kSkip ? skip[e] : y[e]));
+            y[e] = __float2bfloat16_rn(
+                epilogue<kAct, kSkip, kFirst>(y[e], be, kSkip ? skip[e] : y[e]));
         }
     }
 }
@@ -162,10 +177,10 @@ int resident_blocks(Kernel kernel, int* cached) {
     return cached[dev];
 }
 
-template <int kVec, int kAct, bool kSkip>
+template <int kVec, int kAct, bool kSkip, bool kFirst = false>
 int launch(void* y, const void* bias, const void* skip, long long n, int c, cudaStream_t s) {
     static int cached[kMaxDevices] = {};
-    auto kernel = conv_epilogue_kernel<kVec, kAct, kSkip>;
+    auto kernel = conv_epilogue_kernel<kVec, kAct, kSkip, kFirst>;
     const int resident = resident_blocks(kernel, cached);
     if (resident <= 0) return static_cast<int>(cudaErrorInvalidDevice);
     const int period = c / gcd(c, kVec);  // vectors after which the channels repeat
@@ -190,6 +205,14 @@ int launch_skip(void* y, const void* bias, const void* skip, long long n, int c,
                 : launch<kVec, kAct, false>(y, bias, skip, n, c, s);
 }
 
+// the add-first order, which only a skip makes differ from the other
+template <int kVec, int kAct>
+int launch_first(void* y, const void* bias, const void* skip, long long n, int c,
+                 cudaStream_t s) {
+    return skip ? launch<kVec, kAct, true, true>(y, bias, skip, n, c, s)
+                : launch<kVec, kAct, false>(y, bias, skip, n, c, s);
+}
+
 template <int kVec>
 int launch_act(void* y, const void* bias, const void* skip, long long n, int c, int act,
                cudaStream_t s) {
@@ -198,6 +221,9 @@ int launch_act(void* y, const void* bias, const void* skip, long long n, int c, 
         case kLeaky: return launch_skip<kVec, kLeaky>(y, bias, skip, n, c, s);
         case kMish: return launch_skip<kVec, kMish>(y, bias, skip, n, c, s);
         case kSilu: return launch_skip<kVec, kSilu>(y, bias, skip, n, c, s);
+        case kRelu: return launch_skip<kVec, kRelu>(y, bias, skip, n, c, s);
+        case kAddFirst | kIdentity: return launch_first<kVec, kIdentity>(y, bias, skip, n, c, s);
+        case kAddFirst | kRelu: return launch_first<kVec, kRelu>(y, bias, skip, n, c, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -422,7 +448,9 @@ int launch_int8_act(const Int8EpilogueArgs& a, int act, cudaStream_t s) {
 }  // namespace
 
 // y (rows, C) bf16, written in place; bias (C,) bf16; skip (rows, C) bf16 or
-// null, not overlapping y; act 0 identity, 1 leaky_relu(0.1), 2 mish, 3 silu.
+// null, not overlapping y; act 0 identity, 1 leaky_relu(0.1), 2 mish, 3 silu,
+// 4 relu, with kAddFirst (16) or'd in for the add-first order (identity and
+// relu).
 // 16-byte vectors when y and skip are 16-byte aligned, one element at a
 // time otherwise. Returns cudaGetLastError().
 extern "C" int conv_epilogue_launch(void* y, const void* bias, const void* skip, long long rows,

@@ -11,6 +11,10 @@
 //     pools): out[b, i, j, c] = the max of x[b, 2i..2i+1, 2j..2j+1, c]; or
 //     at stride 1, SAME with the pad after (tiny's last pool, as the JAX
 //     maxpool2d): the max of x[b, i..i+1, j..j+1, c] inside the plane.
+//   - 3x3 windows at stride 2 with a symmetric pad of 1 (the ResNet stem's
+//     pool, RT-DETR's; F.max_pool2d(x, 3, 2, 1)): out[b, i, j, c] = the max
+//     of x[b, 2i-1..2i+1, 2j-1..2j+1, c] inside the plane, Ho = (H - 1) / 2
+//     + 1 (the pad is -inf: the cells outside are skipped).
 //
 // Replaces no TPU kernel: the JAX package pools with lax.reduce_window and
 // XLA fused each pool with its neighbours. On the card aten's NHWC max pool
@@ -43,7 +47,10 @@
 // cell (four 16-byte loads, one 16-byte store) in a grid-stride loop over
 // the card's resident blocks. At stride 1 the loads past the plane's last
 // row or column read that row or column again, which leaves the max as it
-// is.
+// is. 3x3 at stride 2 is the same pass with nine loads, the rows and
+// columns outside the plane clamped to the centre's (always inside), which
+// again leaves the max as it is; neighbouring windows share a row or a
+// column, which L2 serves.
 //
 // Exactness: __hmax2_nan on bf16 pairs; max is order-free, and a NaN
 // anywhere in a window gives NaN, as aten's pool (`val > max || isnan`).
@@ -192,7 +199,54 @@ maxpool2x2_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, int batc
     }
 }
 
+// Grid (blocks, images) as maxpool2x2_kernel's; ho = (h - 1) / 2 + 1, wo
+// likewise. The window's rows 2i - 1 .. 2i + 1 and columns 2j - 1 .. 2j + 1,
+// those outside the plane replaced by 2i and 2j.
+__global__ void __launch_bounds__(kThreads)
+maxpool3x3s2_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, int batch, int h,
+                    int w, int c8) {
+    const int ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+    const int items = ho * wo * c8;
+    for (int image = blockIdx.y; image < batch; image += gridDim.y) {
+        const uint4* src = x + static_cast<long long>(image) * h * w * c8;
+        uint4* dst = out + static_cast<long long>(image) * items;
+        for (int i = blockIdx.x * kThreads + threadIdx.x; i < items; i += gridDim.x * kThreads) {
+            const int cell = i / c8, q = i - cell * c8;
+            const int oi = cell / wo, oj = cell - oi * wo;
+            const int i0 = 2 * oi, j0 = 2 * oj;
+            const int rows[3] = {i0 > 0 ? i0 - 1 : i0, i0, i0 + 1 < h ? i0 + 1 : i0};
+            const int cols[3] = {j0 > 0 ? j0 - 1 : j0, j0, j0 + 1 < w ? j0 + 1 : j0};
+            uint4 m = src[(static_cast<long long>(i0) * w + j0) * c8 + q];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                const long long row = static_cast<long long>(rows[a]) * w;
+#pragma unroll
+                for (int b = 0; b < 3; ++b) m = max8(m, src[(row + cols[b]) * c8 + q]);
+            }
+            dst[i] = m;
+        }
+    }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the card's resident blocks of `kernel`, asked once per device (`cached`
+// belongs to one kernel)
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int* cached) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+    if (cached[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+                cudaSuccess) {
+            return 0;
+        }
+        cached[dev] = sms * per_sm;
+    }
+    return cached[dev];
+}
 
 }  // namespace
 
@@ -296,5 +350,30 @@ extern "C" int maxpool2x2_launch(const void* x, void* out, int batch, int h, int
     maxpool2x2_kernel<<<dim3(static_cast<unsigned>(across), static_cast<unsigned>(images)),
                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(x), static_cast<uint4*>(out), batch, h, w, c / 8, stride);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// 3x3 windows at stride 2, pad 1. x (B, H, W, C) bf16, out (B, Ho, Wo, C)
+// bf16 with Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1, both 16-byte
+// aligned, C % 8 == 0, Ho * Wo * C / 8 <= 2^30. Returns cudaGetLastError().
+extern "C" int maxpool3x3s2_launch(const void* x, void* out, int batch, int h, int w, int c,
+                                   void* stream) {
+    if (batch < 0 || h < 1 || w < 1 || c < 8 || c % 8 != 0 || !aligned16(x) || !aligned16(out)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long items = static_cast<long long>((h - 1) / 2 + 1) * ((w - 1) / 2 + 1) * (c / 8);
+    if (items > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    if (batch == 0) return static_cast<int>(cudaSuccess);
+    static int cached[kMaxDevices] = {};
+    const int resident = resident_blocks(maxpool3x3s2_kernel, cached);
+    if (resident <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const long long images = batch < 65535 ? batch : 65535;
+    long long across = resident / images;
+    if (across < 1) across = 1;
+    const long long per_image = (items + kThreads - 1) / kThreads;
+    if (across > per_image) across = per_image;
+    maxpool3x3s2_kernel<<<dim3(static_cast<unsigned>(across), static_cast<unsigned>(images)),
+                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(out), batch, h, w, c / 8);
     return static_cast<int>(cudaGetLastError());
 }

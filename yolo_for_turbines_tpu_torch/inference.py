@@ -21,8 +21,14 @@ YOLOv4 (``backbone="yolov4"``, heads finest first, each scale's
 from the plan); CSP, tiny, YOLOv4 and YOLOv7 have no stage the fused
 residual kernels take, and run K5 and K1 alone. YOLOv4 and YOLOv7 serve
 in bf16 and float32 without a mesh: ``quantize`` and spatial partitioning
-raise on their plans (``models/yolov3.py::refuse_walk_only``). ``load_predictor`` builds a predictor from a darknet weight file,
-``load_predictor_from_checkpoint`` from a checkpoint of the port's
+raise on their plans (``models/yolov3.py::refuse_walk_only``). RT-DETR
+(``backbone="rtdetr_r50vd"``, ``models/rtdetr.py``) serves with the same
+limits and no decode or NMS: its ``.postprocess`` takes the top
+``queries`` of ``sigmoid(logits)`` over queries x classes as each image's
+rows (``rtdetr.postprocess``), the mask their score against
+``conf_threshold``; K1 does not run. ``load_predictor`` builds a
+predictor from a darknet weight file, ``load_predictor_from_checkpoint``
+from a checkpoint of the port's
 trainer; both run on ``device``, ``"cuda"`` unless the caller asks for the
 CPU, and raise without a card.
 
@@ -64,6 +70,7 @@ from . import config as cfg
 from . import native
 from .config import ModelConfig
 from .data.augment import letterbox, unletterbox_boxes
+from .models import rtdetr
 from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
 from .models.yolov3 import FoldedYOLOv3, PlanHead, YOLOv3, build_plan, refuse_walk_only
@@ -148,6 +155,9 @@ class Predictor:
         # when all are "exp"
         size_decode = tuple(e.size_decode for e in heads)
         self.size_decode = None if all(m == "exp" for m in size_decode) else size_decode
+        # RT-DETR's decoder entry (its rows per image are its queries); None
+        # for the YOLO families, which decode and run NMS
+        self.detr = rtdetr.decoder_entry(model.plan)
         self.image_size = image_size
         self.conf_threshold = conf_threshold
         self.nms_iou_threshold = nms_iou_threshold
@@ -249,7 +259,10 @@ class Predictor:
         """x: (B, S, S, 3) float in [0, 1], numpy or tensor.
 
         Returns ((B, K, 6), (B, K) bool) tensors on the predictor's device;
-        on a mesh, the whole batch's on every rank."""
+        on a mesh, the whole batch's on every rank. K is ``max_boxes``, or
+        an RT-DETR model's queries."""
+        if self.detr is not None:
+            return self._predict_detr(x)
         with span("predict_batch"), torch.inference_mode():
             with span("predict_batch.input"):
                 grid_sizes = cfg.grid_sizes_for(x.shape[1], self.model.strides)
@@ -271,6 +284,22 @@ class Predictor:
                     max_boxes=self.max_boxes,
                     portable=self._layout is not None,
                 )
+                if self.mesh is not None:
+                    group = batch_group(self.mesh)
+                    kept, mask = comm.all_gather(kept, group), comm.all_gather(mask, group)
+            return kept, mask
+
+    def _predict_detr(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict_batch`` of an RT-DETR model: its spans, no anchors, and
+        the top ``queries`` rows in ``.postprocess``."""
+        with span("predict_batch"), torch.inference_mode():
+            with span("predict_batch.input"):
+                x = self._shard(x)
+            with span("predict_batch.forward"):
+                logits, boxes = self._heads(x)[:2]
+            with span("predict_batch.postprocess"):
+                kept, mask = rtdetr.postprocess(logits, boxes, self.detr.queries,
+                                                self.conf_threshold)
                 if self.mesh is not None:
                     group = batch_group(self.mesh)
                     kept, mask = comm.all_gather(kept, group), comm.all_gather(mask, group)

@@ -35,11 +35,15 @@ def silu(x):
     return F.silu(x)
 
 
-ACTIVATIONS = {"leaky_relu": leaky_relu, "mish": mish, "silu": silu}
+def relu(x):
+    return F.relu(x)
+
+
+ACTIVATIONS = {"leaky_relu": leaky_relu, "mish": mish, "silu": silu, "relu": relu}
 # the activation name kernel K5 (``conv_epilogue``) takes for each function
 # a folded conv may be given; None is a head's last 1x1
 EPILOGUE_ACTIVATIONS = {None: "identity", leaky_relu: "leaky_relu", mish: "mish",
-                        silu: "silu"}
+                        silu: "silu", relu: "relu"}
 
 
 def get_activation(name: str):
@@ -105,10 +109,11 @@ class ConvBlock(nn.Module):
             if not bn:
                 self.conv.bias.copy_(_uniform(out_ch, fan_in, generator))
 
-    def forward(self, x, act=None, rows=None, skip=None):
+    def forward(self, x, act=None, rows=None, skip=None, add_first=False):
         """``rows`` (``parallel/spatial.py::Rows``) runs the conv with its
         halo and the BN with the moments of the mesh's batch; ``skip`` is
-        added after the activation (a residual block's input)."""
+        added after the activation (a residual block's input), or before it
+        with ``add_first`` (a ResNet bottleneck's shortcut)."""
         if rows is None:
             y = self.conv(x)
             if self.bn is not None:
@@ -118,8 +123,7 @@ class ConvBlock(nn.Module):
             y = rows.conv(x, c.weight, c.bias, c.stride[0], c.padding[0])
             if self.bn is not None:
                 y = rows.bn(self.bn, y)
-        y = act(y) if act is not None else y
-        return y if skip is None else skip + y
+        return _activate(y, act, skip, add_first)
 
     def folded(self) -> Dict:
         """{"w": OIHW, "b"} with eval-mode BN folded in (``fold_conv_bn``)."""
@@ -146,6 +150,68 @@ class ConvBlock(nn.Module):
         return {"mean": self.bn.running_mean, "var": self.bn.running_var}
 
 
+def _activate(y, act, skip, add_first: bool):
+    """``skip + act(y)``, or ``act(y + skip)`` with ``add_first``; no act
+    is the identity and no skip adds nothing."""
+    if add_first and skip is not None:
+        y, skip = y + skip, None
+    y = act(y) if act is not None else y
+    return y if skip is None else skip + y
+
+
+class PooledConvBlock(ConvBlock):
+    """ResNet-vd's down-sampling shortcut in its training form: a 2x2
+    average pool at stride 2 (ceil mode, as the source's; the sides here
+    are even), then a 1x1 conv + BN. ``folded()`` makes it one 2x2 conv at
+    stride 2 whose taps are the folded 1x1 weights over 4: the same
+    function in real arithmetic, rounded once less."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, 1, generator=generator)
+
+    def forward(self, x, act=None, rows=None, skip=None, add_first=False):
+        if rows is not None:
+            raise ValueError("the pooled shortcut takes no rows: an RT-DETR plan has no SP")
+        return super().forward(F.avg_pool2d(x, 2, 2, ceil_mode=True), act, None, skip,
+                               add_first)
+
+    def folded(self) -> Dict:
+        main = super().folded()
+        return {"w": main["w"].expand(-1, -1, 2, 2) / 4, "b": main["b"]}
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` as a leaf of the weight trees: ``w`` (out, in) and
+    ``b``, the same in the trainable and the folded model (no BN to fold).
+    Init as torch's: U(-1/sqrt(in), 1/sqrt(in)) for both, from
+    ``generator``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features)
+        with torch.no_grad():
+            self.weight.copy_(_uniform(self.weight.shape, in_features, generator))
+            self.bias.copy_(_uniform(out_features, in_features, generator))
+
+    def folded(self) -> Dict:
+        return {"w": self.weight.detach(), "b": self.bias.detach()}
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        return {"w": self.weight, "b": self.bias}
+
+    def stat_leaves(self) -> None:
+        return None
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5) as a leaf of the weight trees: ``w`` the
+    scale, ``b`` the shift."""
+
+    folded = Linear.folded
+    leaves = Linear.leaves
+    stat_leaves = Linear.stat_leaves
+
+
 def _uniform(shape, fan_in: int, generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(fan_in)
     return (torch.rand(shape, generator=generator) * 2 - 1) * bound
@@ -158,7 +224,8 @@ def _bn(channels: int) -> nn.BatchNorm2d:
 class RepConvBlock(ConvBlock):
     """YOLOv7's RepConv in its training form: ``act(BN(conv3x3(x)) +
     BN(conv1x1(x)) [+ BN(x)])``, the identity branch where ``in_ch ==
-    out_ch`` and the stride is 1. ``conv`` / ``bn`` are the 3x3 branch's
+    out_ch``, the stride is 1 and ``identity`` (RT-DETR's RepVGG block has
+    none: ``identity=False``). ``conv`` / ``bn`` are the 3x3 branch's
     (``ConvBlock``'s own), ``conv1x1`` / ``bn1x1`` the 1x1's, ``bn_id`` the
     identity's. ``folded()`` re-parameterises it into one 3x3 conv: each
     branch's BN folded into its kernel, the 1x1 kernel zero-padded into the
@@ -167,11 +234,11 @@ class RepConvBlock(ConvBlock):
     a plain 3x3 (``FoldedConv``)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, identity: bool = True):
         super().__init__(in_ch, out_ch, 3, stride, generator=generator)
         self.conv1x1 = nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, 1, stride, bias=False)
         self.bn1x1 = _bn(out_ch)
-        self.bn_id = _bn(in_ch) if in_ch == out_ch and stride == 1 else None
+        self.bn_id = _bn(in_ch) if identity and in_ch == out_ch and stride == 1 else None
         with torch.no_grad():
             self.conv1x1.weight.copy_(_uniform(self.conv1x1.weight.shape, in_ch, generator))
 
@@ -282,18 +349,19 @@ class FoldedConv(nn.Module):
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
 
-    def forward(self, x, act=None, rows=None, skip=None):
-        """``skip + act(conv(x) + bias)``; ``rows`` as ``ConvBlock``'s (SP
-        keeps the separate ops)."""
+    def forward(self, x, act=None, rows=None, skip=None, add_first=False):
+        """``skip + act(conv(x) + bias)``, or ``act(conv(x) + bias + skip)``
+        with ``add_first``; ``rows`` as ``ConvBlock``'s (SP keeps the
+        separate ops)."""
         if rows is None and epilogue_wins(x, act, skip):
             y = conv2d(x, self.weight, self.stride, self.padding)
-            return conv_epilogue(y, self.bias, EPILOGUE_ACTIVATIONS[act], skip)
+            order = {"add_first": True} if add_first else {}  # the Darknet order by default
+            return conv_epilogue(y, self.bias, EPILOGUE_ACTIVATIONS[act], skip, **order)
         if rows is None:
             y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
         else:
             y = rows.conv(x, self.weight, self.bias, self.stride, self.padding)
-        y = act(y) if act is not None else y
-        return y if skip is None else skip + y
+        return _activate(y, act, skip, add_first)
 
 
 def residual_blocks(width: int, hidden: int, n: int, conv) -> nn.ModuleList:
@@ -366,6 +434,17 @@ def maxpool2d(x, kernel: int, stride: int):
             fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
             x = F.pad(x, (before, after, before, after), value=fill)
         return pool_valid(x, kernel, stride)
+
+
+def maxpool3x3s2(x):
+    """NCHW max pool over 3x3 windows at stride 2 with a symmetric pad of 1
+    (-inf), as ``F.max_pool2d(x, 3, 2, 1)``: the ResNet stem's. K8 where
+    ``pool_wins(x)``, aten's pool elsewhere. Runs inside the program span
+    ``forward.pool``."""
+    with profiling.span("forward.pool"):
+        if pool_wins(x):
+            return maxpool_kernel.apply_maxpool3x3s2(x)
+        return maxpool_kernel.maxpool3x3s2_reference(x)
 
 
 def pool_valid(x, kernel: int, stride: int):

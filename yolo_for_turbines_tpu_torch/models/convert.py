@@ -51,8 +51,10 @@ def _to_f32(a) -> torch.Tensor:
 @torch.no_grad()
 def _fill(conv, p) -> None:
     """A ``FoldedConv`` or ``nn.Conv2d`` from ``{"w": HWIO, "b"}``; a conv
-    without a bias takes ``w`` alone."""
-    w = _to_f32(p["w"]).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    without a bias takes ``w`` alone; a ``Linear`` or ``LayerNorm`` takes
+    its ``w`` as it is."""
+    w = _to_f32(p["w"])
+    w = w.permute(3, 2, 0, 1) if w.dim() == 4 else w  # HWIO -> OIHW
     if tuple(w.shape) != tuple(conv.weight.shape):
         raise ValueError(f"weight {tuple(w.shape)} != module {tuple(conv.weight.shape)}")
     conv.weight.copy_(w)

@@ -53,10 +53,13 @@ from ..ops.kernels.resblock_kernel import (
     stage_wins,
 )
 from ..utils.profiling import span
+from . import rtdetr
 from .blocks import (
     ConvBlock,
     FoldedConv,
     ImplicitConv,
+    LayerNorm,
+    Linear,
     RepConvBlock,
     cat_channels,
     get_activation,
@@ -71,6 +74,7 @@ from .cspdarknet import (
     PlanCSP,
     TrainableCSPStage,
 )
+from .rtdetr import DETR_ENTRIES, RTDETR_LAYER_CONFIG, PlanDETRDecoder
 from .yolov7 import ELAN, ELAN_PICKS, SPPCSPC, MPDown, PlanELAN, PlanMP, PlanSPPCSPC
 
 # Same declarative architecture list as the JAX package (reference:
@@ -346,19 +350,25 @@ class PlanJoin:
     label: ClassVar[str] = "named routes"
 
 
-def refuse_walk_only(plan, path: str, missing: str) -> None:
+# the families whose entries only the folded and the trainable walk take,
+# each with its article; a plan is named after the last family it holds
+# (a YOLOv7 plan holds YOLOv4's named routes too)
+FAMILIES = {"YOLOv4": "a YOLOv4", "YOLOv7": "a YOLOv7", "RT-DETR": "an RT-DETR"}
+
+
+def refuse_walk_only(plan, path: str, missing: str, families=tuple(FAMILIES)) -> None:
     """Raise a ValueError when ``plan`` has entries that only the folded and
-    the trainable walk take: YOLOv4's and YOLOv7's, each marked by its
-    ``family`` and ``label``, which neither int8 PTQ, spatial partitioning,
-    the darknet reader nor the Trainer take. The message names ``path``,
-    the plan's family (YOLOv7's when it has any of its entries: its plans
-    hold YOLOv4's named routes too), the entries' labels and ``missing``,
-    what ``path`` would need."""
+    the trainable walk take: YOLOv4's, YOLOv7's and RT-DETR's, each marked
+    by its ``family`` and ``label``, which neither int8 PTQ, spatial
+    partitioning, the darknet reader nor the Trainer take (bundles and
+    exports refuse RT-DETR's alone: ``families``). The message names
+    ``path``, the plan's family, the entries' labels and ``missing``, what
+    ``path`` would need."""
     found = [e for e in plan if getattr(e, "family", None)]
-    if found:
-        family = "YOLOv7" if any(e.family == "YOLOv7" for e in found) else "YOLOv4"
+    if any(e.family in families for e in found):
+        family = max((e.family for e in found), key=list(FAMILIES).index)
         labels = ", ".join(dict.fromkeys(e.label for e in found))
-        raise ValueError(f"{path} does not take a {family} plan ({labels}): {missing}")
+        raise ValueError(f"{path} does not take {FAMILIES[family]} plan ({labels}): {missing}")
 
 
 Plan = Tuple
@@ -382,7 +392,11 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
     and ``("head", scale_xy)``, a head alone on the trunk. YOLOv7's:
     ``("elan", mid, q, out)`` / ``("elanh", mid, q, out)``, ``("mp", c)`` /
     ``("mp", c, route)``, ``("sppcspc", c)`` and ``("head", scale_xy,
-    "square")`` (``models/yolov7.py``)."""
+    "square")`` (``models/yolov7.py``). RT-DETR's (``rtdetr_r50vd``,
+    ``RTDETR_LAYER_CONFIG``): ``("resnet_vd", width, *depths)``,
+    ``("hybrid_encoder", hidden, heads, ffn, blocks)`` and
+    ``("detr_decoder", hidden, heads, levels, points, queries, layers,
+    ffn)`` (``models/rtdetr.py``), each handing its levels to the next."""
     if cfg.layer_config is not None:
         layer_config = cfg.layer_config
     elif layer_config is None:
@@ -392,14 +406,19 @@ def build_plan(cfg: ModelConfig, layer_config=None) -> Plan:
             return build_tiny_plan(cfg)
         layer_config = {"cspdarknet53": CSP_LAYER_CONFIG,
                         "yolov4": YOLOV4_LAYER_CONFIG,
-                        "yolov7": YOLOV7_LAYER_CONFIG}.get(cfg.backbone, LAYER_CONFIG)
+                        "yolov7": YOLOV7_LAYER_CONFIG,
+                        "rtdetr_r50vd": RTDETR_LAYER_CONFIG}.get(cfg.backbone, LAYER_CONFIG)
     plan: List = []
     in_ch = cfg.in_channels
     first_csp = True
     saved = {}  # channels of each named route
     for block in layer_config:
         tag = block[0] if isinstance(block, tuple) else block
-        if tag == "B":
+        detr = rtdetr.plan_entry(block, in_ch, cfg.num_classes) if isinstance(tag, str) else None
+        if detr is not None:
+            entry, in_ch = detr
+            plan.append(entry)
+        elif tag == "B":
             n = block[1]
             plan.append(
                 PlanResidual(channels=in_ch, num_blocks=n, save_route=(n == 8))
@@ -473,8 +492,10 @@ def param_count(params) -> int:
 
 def jax_layout(w: torch.Tensor, b: torch.Tensor) -> dict:
     """An OIHW conv weight and its bias as the JAX tree's {"w": HWIO, "b"}
-    numpy float32 arrays."""
-    w = w.detach().float().cpu().permute(2, 3, 1, 0)  # OIHW -> HWIO
+    numpy float32 arrays; a linear layer's (out, in) weight or a layer
+    norm's scale as it is."""
+    w = w.detach().float().cpu()
+    w = w.permute(2, 3, 1, 0) if w.dim() == 4 else w  # OIHW -> HWIO
     return {"w": w.contiguous().numpy(), "b": b.detach().float().cpu().numpy()}
 
 
@@ -702,6 +723,9 @@ LAYERS = {
     **{entry: (lambda e, g, block=block: block(e, lambda *shape: ConvBlock(*shape, generator=g)),
                lambda e, block=block: block(e, FoldedConv))
        for entry, block in ((PlanELAN, ELAN), (PlanMP, MPDown), (PlanSPPCSPC, SPPCSPC))},
+    **{entry: (lambda e, g: rtdetr.layer(e, rtdetr.trainable_kit(g)),
+               lambda e: rtdetr.layer(e, rtdetr.FOLDED_KIT))
+       for entry in DETR_ENTRIES},
     **{t: (nn.Identity, nn.Identity)
        for t in (PlanUpsample, PlanMaxPool, PlanRoute, PlanActivation, PlanSPP, PlanSave,
                  PlanJoin)},
@@ -720,16 +744,21 @@ def plan_layers(plan: Plan, folded: bool, generator=None) -> nn.ModuleList:
     return nn.ModuleList(layers)
 
 
+# the modules that are leaves of the weight trees
+WEIGHT_LEAVES = (ConvBlock, FoldedConv, Linear, LayerNorm)
+
+
 def conv_paths(layers) -> Iterator[Tuple[int, tuple, nn.Module]]:
     """``(entry index, key path, conv)`` for every conv (``ConvBlock`` or
-    ``FoldedConv``) of ``layers``, in registration order, which is the JAX
+    ``FoldedConv``) of ``layers``, and every ``Linear`` and ``LayerNorm``
+    (RT-DETR's), in registration order, which is the JAX
     init order (a CSP stage: split1, split2, the blocks, transition, fuse).
     The JAX tree holds the conv at that path of entry ``index``'s tree: the
     conv's own name in its layer (``blocks.3.conv1`` -> ``("blocks", 3,
     "conv1")``), and ``("conv",)`` for a layer that is itself a conv."""
     for i, layer in enumerate(layers):
         for name, module in layer.named_modules():
-            if isinstance(module, (ConvBlock, FoldedConv)):
+            if isinstance(module, WEIGHT_LEAVES):
                 path = tuple(int(k) if k.isdigit() else k for k in name.split("."))
                 yield i, path if name else ("conv",), module
 
@@ -780,6 +809,17 @@ def _init_folded_conv(gen, in_ch, out_ch, kernel, bn=True):
     return {"w": w, "b": (torch.rand(out_ch, generator=gen) * 2 - 1) * bound}
 
 
+def _init_leaf(gen, module):
+    """A linear layer's weight and bias U(-1/sqrt(in), 1/sqrt(in)) (torch's
+    init); a layer norm's scale 1 and shift 0."""
+    if isinstance(module, LayerNorm):
+        return {"w": torch.ones(module.weight.shape), "b": torch.zeros(module.bias.shape)}
+    out_ch, in_ch = module.weight.shape
+    bound = 1.0 / math.sqrt(in_ch)
+    return {"w": (torch.rand(out_ch, in_ch, generator=gen) * 2 - 1) * bound,
+            "b": (torch.rand(out_ch, generator=gen) * 2 - 1) * bound}
+
+
 def init_plan(plan: Plan, generator: torch.Generator):
     """Random folded tree aligned with a plan, in the layout of the JAX
     ``fold_params`` output (HWIO weights), as CPU float32 tensors."""
@@ -789,6 +829,9 @@ def init_plan(plan: Plan, generator: torch.Generator):
         layers = plan_layers(plan, folded=True)
     folded = [{} for _ in plan]
     for i, path, conv in conv_paths(layers):
+        if isinstance(conv, (Linear, LayerNorm)):
+            tree_insert(folded[i], path, _init_leaf(generator, conv))
+            continue
         out_ch, in_ch, kernel, _ = conv.weight.shape
         # BN-free: a head's last 1x1 (its tree's top-level "conv2") and a
         # PlanConv with bn=False
@@ -808,7 +851,9 @@ class FoldedYOLOv3(nn.Module):
     in memory, which is what the fused residual kernel and K5 take (the
     concats, pools and upsamples keep it). On a YOLOv4 plan the forward
     runs in three spans (``_parts``); on a YOLOv7 plan each ELAN and the
-    SPPCSPC run in a span of their own (``_walk``).
+    SPPCSPC run in a span of their own (``_walk``). An RT-DETR plan's
+    forward returns ``[logits, boxes, memory, idx]`` instead of heads
+    (``models/rtdetr.py``).
     """
 
     def __init__(self, cfg: ModelConfig, plan: Optional[Plan] = None):
@@ -876,7 +921,9 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     branch. Each part of ``model._parts`` runs inside its span (a YOLOv4
     plan's three; none for any other plan); each ``PlanELAN`` runs inside
     ``forward.elan`` and each ``PlanSPPCSPC`` inside ``forward.sppcspc``, a
-    ``PlanMP`` joins its named route. Every channel concat is counted in
+    ``PlanMP`` joins its named route; RT-DETR's entries hand their levels
+    on, each inside its span (``detr.backbone``, ``detr.encoder``,
+    ``detr.decoder``), and the decoder's outputs are the result. Every channel concat is counted in
     ``utils/profiling.py::concat_bytes``, but for SPP's and SPPCSPC's pool
     pyramids on the card, which K8 writes without one
     (``blocks.maxpool_pyramid``). Every max pool runs inside a span
@@ -884,8 +931,8 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
 
     With a ``layout``, ``rows`` says how each activation lies on the mesh;
     ``layout.constrain`` re-lays it where the height changes (the JAX
-    ``constrain`` points) and the heads are gathered. A YOLOv4 or YOLOv7
-    plan takes no layout."""
+    ``constrain`` points) and the heads are gathered. A YOLOv4, YOLOv7 or
+    RT-DETR plan takes no layout."""
     x = x.to(next(model.parameters()).dtype).permute(0, 3, 1, 2)
     rows = None
     if layout is not None:
@@ -942,4 +989,9 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
                 elif isinstance(entry, PlanSPPCSPC):
                     with span("forward.sppcspc"):
                         x = layer(x, act)
+                elif isinstance(entry, DETR_ENTRIES):
+                    with span(entry.span):
+                        x = layer(x)
+                    if isinstance(entry, PlanDETRDecoder):
+                        preds.extend(x)  # logits, boxes, memory, idx
     return preds

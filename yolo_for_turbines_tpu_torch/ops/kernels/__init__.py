@@ -63,6 +63,11 @@ _SIGNATURES = {
     "maxpool_pyramid_launch": ([_P, _P, ctypes.POINTER(_I)] + [_I] * 5 + [_P], _I),
     # x, out, batch, H, W, C, stride, stream
     "maxpool2x2_launch": ([_P, _P] + [_I] * 5 + [_P], _I),
+    # x, out, batch, H, W, C, stream
+    "maxpool3x3s2_launch": ([_P, _P] + [_I] * 4 + [_P], _I),
+    # value, loc, weights, out, shapes, levels, batch, tokens, queries, heads,
+    # dim, points, stream
+    "deform_attention_launch": ([_P] * 4 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P], _I),
 }
 
 

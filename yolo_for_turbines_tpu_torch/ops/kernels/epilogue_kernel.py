@@ -6,8 +6,11 @@ card cuDNN computes the convolution (``F.conv2d`` without its bias) and K5
 then rewrites the output ``y`` in place:
 
     y = bf16(skip + act(float(y) + float(bias)))    # skip optional
+    y = bf16(act(float(y) + float(bias) + float(skip)))    # add_first
 
-with ``act`` identity, leaky_relu(0.1), mish or silu, in f32 and rounded once,
+with ``act`` identity, leaky_relu(0.1), mish, silu or relu, in f32 and
+rounded once; the second order (``add_first``) is a ResNet bottleneck's,
+whose shortcut joins before its ReLU,
 where the composition it replaces (the conv's bias add, the activation,
 ``x + y``) read and wrote the activation three times and rounded it each
 time. ``y`` and ``skip`` are (B, C, H, W) tensors stored channels_last (NHWC
@@ -32,28 +35,41 @@ from . import check, load_library, stream_handle
 launches = 0
 
 # the activation codes of csrc/epilogue.cu
-ACT_CODES = {"identity": 0, "leaky_relu": 1, "mish": 2, "silu": 3}
+ACT_CODES = {"identity": 0, "leaky_relu": 1, "mish": 2, "silu": 3, "relu": 4}
+# or'd into the code: the skip joins before the activation (identity and
+# relu take it)
+ADD_FIRST = 16
 _ACTIVATIONS = {
     "identity": lambda t: t,
     "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
     "mish": F.mish,
     "silu": F.silu,
+    # a NaN and a -0 pass as they are, as the kernel's
+    "relu": lambda t: torch.where(t < 0, torch.zeros_like(t), t),
 }
 
 
 def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, activation: str = "identity",
-                            skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain torch version: ``skip + act(y + bias)`` in f32, rounded once to
-    ``y.dtype``; a new tensor."""
-    t = _ACTIVATIONS[activation](y.float() + bias.float()[:, None, None])
+                            skip: Optional[torch.Tensor] = None,
+                            add_first: bool = False) -> torch.Tensor:
+    """Plain torch version: ``skip + act(y + bias)``, or with ``add_first``
+    ``act(y + bias + skip)``, in f32, rounded once to ``y.dtype``; a new
+    tensor."""
+    t = y.float() + bias.float()[:, None, None]
+    if add_first and skip is not None:
+        return _ACTIVATIONS[activation](t + skip.float()).to(y.dtype)
+    t = _ACTIVATIONS[activation](t)
     if skip is not None:
         t = t + skip.float()
     return t.to(y.dtype)
 
 
-def _check(y, bias, activation, skip) -> None:
+def _check(y, bias, activation, skip, add_first=False) -> None:
     if activation not in ACT_CODES:
         raise ValueError(f"conv_epilogue: unsupported activation {activation!r}")
+    if add_first and activation not in ("identity", "relu"):
+        raise ValueError(f"conv_epilogue: the add-first order takes identity or relu, got "
+                         f"{activation!r}")
     if y.dim() != 4 or not y.is_floating_point():
         raise ValueError(f"conv_epilogue: y must be a float (B, C, H, W) tensor, got "
                          f"{y.dtype} {tuple(y.shape)}")
@@ -77,20 +93,23 @@ def _check(y, bias, activation, skip) -> None:
 
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identity",
-                  skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Write ``skip + act(y + bias)`` into ``y`` and return ``y``.
+                  skip: Optional[torch.Tensor] = None, add_first: bool = False) -> torch.Tensor:
+    """Write ``skip + act(y + bias)`` (with ``add_first``: ``act(y + bias +
+    skip)``) into ``y`` and return ``y``.
 
     Args:
         y: (B, C, H, W) conv output stored channels_last; bf16 on CUDA.
         bias: (C,) in ``y``'s dtype.
-        activation: "identity", "leaky_relu" (slope 0.1), "mish" or "silu".
+        activation: "identity", "leaky_relu" (slope 0.1), "mish", "silu" or
+            "relu".
         skip: None, or a tensor like ``y`` (a residual block's input) that
             does not overlap it.
+        add_first: the skip joins before the activation (identity or relu).
     """
     global launches
-    _check(y, bias, activation, skip)
+    _check(y, bias, activation, skip, add_first)
     if not y.is_cuda and y.device.type == "cpu":
-        return y.copy_(conv_epilogue_reference(y, bias, activation, skip))
+        return y.copy_(conv_epilogue_reference(y, bias, activation, skip, add_first))
     if y.dtype != torch.bfloat16:
         raise ValueError(f"conv_epilogue: the kernel takes bf16, got {y.dtype}")
     if not y.is_cuda:
@@ -100,7 +119,8 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identi
     b, c, h, w = y.shape
     rc = load_library().conv_epilogue_launch(
         y.data_ptr(), bias.data_ptr(), None if skip is None else skip.data_ptr(),
-        b * h * w, c, ACT_CODES[activation], stream_handle(y.device))
+        b * h * w, c, ACT_CODES[activation] | (ADD_FIRST if add_first else 0),
+        stream_handle(y.device))
     check(rc, "conv_epilogue_launch")
     launches += 1
     return y

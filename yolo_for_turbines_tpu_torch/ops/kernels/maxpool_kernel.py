@@ -13,7 +13,10 @@ and XLA fused the pools with the concat after them. It has two geometries:
 - ``maxpool2x2(x, stride)``: 2x2 windows, at stride 2 VALID as
   ``F.max_pool2d(x, 2, 2)`` (YOLOv7's MP, tiny's down-sampling pools), at
   stride 1 SAME with the pad after, as the JAX ``maxpool2d`` (tiny's last
-  pool).
+  pool);
+- ``maxpool3x3s2(x)``: 3x3 windows at stride 2 with a symmetric pad of 1
+  (-inf), as ``F.max_pool2d(x, 3, 2, 1)``: the ResNet stem's pool
+  (RT-DETR's ResNet-50-vd).
 
 ``x`` is a (B, C, H, W) tensor stored channels_last (NHWC memory), as the
 folded model keeps its activations, and so is the result. Max is
@@ -23,12 +26,13 @@ out.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version (the aten composition); a CUDA tensor launches the kernel or raises.
-``apply_pyramid`` and ``apply_maxpool2x2`` launch it for any bf16 CUDA
-tensor: they copy one that is not channels_last, 16-byte aligned and 8
-channels wide into a fresh one first (zero channels up to a multiple of 8,
-cut from the result) and give the result the input's layout.
-``models/blocks.py`` (``pool_wins``, ``maxpool_pyramid``, ``maxpool2d``)
-sends them every bf16 CUDA tensor that needs no grad.
+``apply_pyramid``, ``apply_maxpool2x2`` and ``apply_maxpool3x3s2`` launch
+it for any bf16 CUDA tensor: they copy one that is not channels_last,
+16-byte aligned and 8 channels wide into a fresh one first (zero channels
+up to a multiple of 8, cut from the result) and give the result the input's
+layout. ``models/blocks.py`` (``pool_wins``, ``maxpool_pyramid``,
+``maxpool2d``, ``maxpool3x3s2``) sends them every bf16 CUDA tensor that
+needs no grad.
 """
 
 from __future__ import annotations
@@ -69,6 +73,11 @@ def maxpool2x2_reference(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     if stride == 1:
         x = F.pad(x, (0, 1, 0, 1), value=float("-inf"))
     return F.max_pool2d(x, 2, stride)
+
+
+def maxpool3x3s2_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version: ``F.max_pool2d(x, 3, 2, 1)``."""
+    return F.max_pool2d(x, 3, 2, 1)
 
 
 def _check(x: torch.Tensor, what: str) -> None:
@@ -171,6 +180,36 @@ def maxpool2x2(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     return out
 
 
+def maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max pool at stride 2 with a symmetric pad of 1 (-inf).
+
+    Args:
+        x: (B, C, H, W) stored channels_last; bf16 on CUDA, C % 8 == 0, the
+            storage 16-byte aligned.
+
+    Returns:
+        (B, C, (H - 1) // 2 + 1, (W - 1) // 2 + 1) stored channels_last.
+    """
+    global launches
+    _check(x, "maxpool3x3s2")
+    if x.device.type == "cpu":
+        return maxpool3x3s2_reference(x)
+    if not x.is_cuda:
+        raise ValueError(f"maxpool3x3s2: unsupported device {x.device}")
+    b, c, h, w = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    if ho * wo * (c // 8) > 2**30:
+        raise ValueError(f"maxpool3x3s2: {h}x{w}x{c} exceeds the kernel's 32-bit index")
+    out = torch.empty((b, c, ho, wo), dtype=x.dtype, device=x.device, memory_format=CL)
+    if out.numel() == 0:
+        return out
+    rc = load_library().maxpool3x3s2_launch(x.data_ptr(), out.data_ptr(), b, h, w, c,
+                                            stream_handle(x.device))
+    check(rc, "maxpool3x3s2_launch")
+    launches += 1
+    return out
+
+
 def _operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` as K8 reads it: itself if it is stored channels_last, 16-byte
     aligned and a multiple of 8 channels wide; else a fresh channels_last
@@ -214,6 +253,16 @@ def apply_maxpool2x2(x: torch.Tensor, stride: int) -> torch.Tensor:
     ``_operand``, the padded channels cut."""
     c = x.shape[1]
     out = maxpool2x2(_operand(x), stride)
+    if out.shape[1] != c:
+        out = out[:, :c].contiguous(memory_format=CL)
+    return _as_input(out, x)
+
+
+def apply_maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """``maxpool3x3s2`` in any layout, alignment and width: through
+    ``_operand``, the padded channels cut."""
+    c = x.shape[1]
+    out = maxpool3x3s2(_operand(x))
     if out.shape[1] != c:
         out = out[:, :c].contiguous(memory_format=CL)
     return _as_input(out, x)

@@ -43,6 +43,7 @@ from .config import ModelConfig
 from .inference import Predictor
 from .models.convert import qparams_from_numpy, qparams_to_numpy
 from .models.quantize import apply_inference_int8
+from .models.yolov3 import refuse_walk_only
 from .ops.decode import decode_raw_all
 from .ops.nms import batched_nms
 from .utils.device import resolve_device
@@ -57,6 +58,9 @@ _DTYPES = {
     "float32": torch.float32,
 }
 _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+# why an RT-DETR predictor makes no bundle and no export
+BUNDLE_MISSING = ("its postprocess (the top queries, no NMS) and its weight tree's layout are "
+                  "not ported to the bundle format or the exported program")
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +156,7 @@ def save_predictor(pred: Predictor, path) -> Path:
     Overwriting a bundle resets its exports index and deletes its
     ``exports/`` directory: programs exported from the old weights are not
     left where a glob could pick them up."""
+    refuse_walk_only(pred.model.plan, "the bundle writer", BUNDLE_MISSING, families=("RT-DETR",))
     folded_spec, folded_leaves = tree_to_spec(pred.full_precision_tree())
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
@@ -314,6 +319,7 @@ def export_serving_module(pred: Predictor, batch_size: int,
     S, 3) f32 in [0, 1]; it returns ((B, K, 6) boxes, (B, K) mask). Device
     literals are the CPU's: ``ExportedPredictor`` moves the program to its
     device."""
+    refuse_walk_only(pred.model.plan, "torch.export", BUNDLE_MISSING, families=("RT-DETR",))
     portable = _portable_predictor(pred)
     image_size = image_size or pred.image_size
     x = torch.zeros((batch_size, image_size, image_size, 3), dtype=torch.float32)

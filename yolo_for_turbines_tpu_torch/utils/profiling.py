@@ -20,7 +20,14 @@ walk's upsample, lateral, join and SPP concats, every CSP stage's and
 YOLOv7's ELAN, MP and SPPCSPC concats; on the card kernel K8 writes SPP's
 and SPPCSPC's pool pyramids without a concat, ``blocks.maxpool_pyramid``), from
 the process's start, like the kernels' ``launches`` counters: one integer
-add per concat, with or without a profiler.
+add per concat, with or without a profiler. ``deform_samples`` counts
+likewise the bilinear samples that RT-DETR's deformable attention takes
+(``models/rtdetr.py::MSDeformableAttention``: B x queries x heads x
+levels x points per decoder layer).
+
+Besides the spans the callers name, RT-DETR's forward opens
+``detr.backbone``, ``detr.encoder`` and ``detr.decoder`` once each and
+``detr.deform`` once per decoder layer, around the sampling core.
 
 The JAX package's ``StepTimer`` has no counterpart, and its
 ``enable_compilation_cache`` none either: the port compiles nothing at run
@@ -46,6 +53,7 @@ _ids = itertools.count(1)
 _local = threading.local()
 _OFF = contextlib.nullcontext()
 concat_bytes = 0
+deform_samples = 0
 
 
 @contextlib.contextmanager
