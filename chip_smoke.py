@@ -43,7 +43,12 @@ Phases, one JSON line each:
           elements; CUDA-event times at B = 128 of 416x416x32, 208x208x64,
           52x52x256 with a skip and 13x13x255 (each launch on a tensor
           outside L2) beside their byte bounds, the plain version and the
-          aten composition it replaced;
+          aten composition it replaced; its result stored into a channel
+          slice of a concat buffer (the slice only, and the slice and y) at
+          the concat parts of YOLOv7 at 640px and YOLOv4 at 608px, B = 64:
+          bit for bit as the in-place launch, within phase k5's gate of the
+          plain version, every other channel of the buffer untouched, and
+          CUDA-event times beside the in-place launch's;
   k6      an int8 conv's epilogue (dequant, bias, activation, residual add
           and requant in one pass, i32 in, s8 out) against the aten
           composition it replaced at every width the models give it (B = 2;
@@ -77,7 +82,11 @@ Phases, one JSON line each:
           K8 launches per YOLOv4 predict_batch at 608px (1; YOLOv7's 6 are
           phase yolov7's), and a YOLOv7 forward with every pool on aten
           (pool_wins patched) against the unpatched one in the same
-          process: heads equal; alone, with the env and build lines:
+          process: heads equal; YOLOv4's 110 K5 launches per predict_batch,
+          its heads and boxes with the concats written in place against
+          the same predictor's with torch.cat (concat_wins patched): bit
+          for bit, and K5's share of the concat bytes at least 0.9; alone,
+          with the env and build lines:
           python3 -c "import chip_smoke; chip_smoke.k8_alone()";
   rtdetr  RT-DETR-R50's kernel paths: K5's ReLU and its add-first order
           (a bottleneck's shortcut joins before its ReLU) bit for bit
@@ -100,6 +109,13 @@ Phases, one JSON line each:
           K5 exactly 59 times per predict_batch at B = 8 and 128;
           K1 and K2 must launch, outputs must be finite and well shaped,
           and raw heads must agree with an f32 CPU forward of the same weights;
+  yolov7  YOLOv7 at 640px from seeded folded weights, bf16, B = 8: 92 K5,
+          6 K8 and 0 K2 launches per predict_batch, K1 at the end; the raw
+          heads against the f32 CPU forward printed; its heads and boxes
+          with the concats written in place against the same predictor's
+          with torch.cat (concat_wins patched): bit for bit, and K5's share
+          of the concat bytes at least 0.9; phases k5, k8 and yolov7 alone:
+          python3 -c "import chip_smoke; chip_smoke.concat_alone()";
   main_f32  the same model with compute_dtype=float32 (TF32 off),
           predict_batch at B = 2: K2 and K5 are bf16 only, so they must not
           launch (the stage takes the cuDNN layer path, every conv its
@@ -331,6 +347,21 @@ K5_CHECKED = ((5, 7, 32), (3, 3, 64), (4, 6, 128), (13, 13, 256), (26, 26, 512),
 # K5 launches per bf16 YOLOv7 predict_batch at 640px: every one of its 92
 # folded convs (89 under SiLU, the heads' three 1x1s identity)
 K5_PER_CALL_YOLOV7 = 92
+# and per bf16 YOLOv4 predict_batch at 608px: its 110 folded convs
+K5_PER_CALL_YOLOV4 = 110
+# K5's result stored into a concat buffer's channel slice, B = 64: (H = W,
+# C, the slice's channel offset, the buffer's channels, activation, keep y)
+# of YOLOv7's concat parts at 640px (the first ELAN's c4 and its kept b, an
+# ELAN-H's kept c2, an MP's pool branch) and YOLOv4's at 608px (CSP stage
+# 1's split1 and stage 5's transition under mish, a lateral 1x1 and a
+# join's stride-2 conv under leaky)
+K5_SLICES = ((160, 64, 0, 256, "silu", False), (160, 64, 128, 256, "silu", True),
+             (40, 128, 256, 1024, "silu", True), (80, 128, 128, 256, "silu", False),
+             (304, 64, 64, 128, "mish", False), (19, 512, 0, 1024, "mish", False),
+             (76, 128, 0, 256, "leaky_relu", False), (19, 512, 0, 1024, "leaky_relu", False))
+# the least share of a YOLOv4 or YOLOv7 predict_batch's concat bytes that K5
+# stores in place (the rest: routes and upsampled halves copied in)
+CONCAT_IN_PLACE_SHARE = 0.9
 # K6 launches per int8 Darknet-53 predict_batch at 416px (any B): every int8
 # conv outside K4's 26x26x512 stage and the heads (bf16)
 K6_PER_CALL = 53
@@ -912,6 +943,53 @@ def k5_check(y, bias, activation, skip, what, out):
         raise AssertionError(f"K5 differs from plain: {out['checks'][-1]}")
 
 
+def k5_slice(ek, gen, dev, hw, c, offset, pitch, activation, keep, out):
+    """K5 at B = 64 with its result stored into channels [offset, offset +
+    C) of a (B, pitch, H, W) channels_last buffer (and into y with
+    ``keep``): equal bit for bit to the in-place launch, within phase k5's
+    gate of the plain version, the buffer's other channels untouched
+    (a sentinel planted there); CUDA-event times of the three ways, each
+    launch on a tensor outside L2."""
+    y, bias, _ = k5_inputs(64, hw, hw, c, gen, dev, False)
+    what = f"64x{hw}x{hw}x{c} into [{offset}, {offset + c}) of {pitch}" + (", keep" if keep
+                                                                           else "")
+    k5_check(y, bias, activation, None, what, out)
+    want = ek.conv_epilogue(y.clone(memory_format=torch.channels_last), bias, activation)
+    buf = torch.full((64, pitch, hw, hw), -3.0, dtype=torch.bfloat16, device=dev)
+    buf = buf.contiguous(memory_format=torch.channels_last)
+    dest = buf[:, offset:offset + c]
+    got_y = y.clone(memory_format=torch.channels_last)
+    ek.conv_epilogue(got_y, bias, activation, out=dest, keep=keep)
+    torch.cuda.synchronize()
+    rest = torch.cat([buf[:, :offset], buf[:, offset + c:]], dim=1)
+    ok = (torch.equal(dest.view(torch.int16), want.view(torch.int16))
+          and bool((rest == -3.0).all())
+          and torch.equal(got_y.view(torch.int16), (want if keep else y).view(torch.int16)))
+    row = {"case": what, "activation": activation, "equal_to_in_place": ok}
+    if not ok:
+        emit({**out, "slices": [row]})
+        raise AssertionError(f"K5's slice output differs from its in-place result: {what}")
+    del rest, want
+    nbytes = y.numel() * 2 * (3 if keep else 2)
+    copies = [y.clone(memory_format=torch.channels_last)
+              for _ in range(max(1, -(-int(150e6) // (y.numel() * 2))))]
+    turn = iter(range(1 << 30))
+
+    def in_place():
+        ek.conv_epilogue(copies[next(turn) % len(copies)], bias, activation)
+
+    def sliced():
+        ek.conv_epilogue(copies[next(turn) % len(copies)], bias, activation, out=dest, keep=keep)
+
+    iters = max(10, min(100, int(2e9 // nbytes)))
+    row["ms"], row["in_place_ms"] = ab_ms(sliced, in_place, iters, iters)
+    row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    del y, buf, dest, got_y, copies
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_k5(dev):
     """K5 against its plain version at every width the models give it (the
     three activations, identity, with and without a skip; a misaligned view
@@ -978,6 +1056,7 @@ def phase_k5(dev):
         rows.append(row)
         del y, skip, copies
         torch.cuda.empty_cache()
+    out["slices"] = [k5_slice(ek, gen, dev, *geometry, out) for geometry in K5_SLICES]
     emit(out)
     worst = min(rows, key=lambda r: r["share_of_bound"])
     return {"ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
@@ -1240,6 +1319,46 @@ def k8_model(family: str, dev):
                      image_size=size), size
 
 
+def concat_check(pred, x, out) -> None:
+    """``pred``'s heads and ``predict_batch`` boxes with the concats written
+    in place against the same predictor's with ``torch.cat``
+    (``blocks.concat_wins`` patched to refuse; the forward is otherwise the
+    same launches): bit for bit; and K5's share of one forward's concat
+    bytes (``profiling.concat_in_place_bytes`` against the copies'
+    ``concat_bytes``), gated at CONCAT_IN_PLACE_SHARE."""
+    from yolo_for_turbines_tpu_torch.models import blocks
+    from yolo_for_turbines_tpu_torch.utils import profiling
+
+    with torch.inference_mode():
+        copied, stored = profiling.concat_bytes, profiling.concat_in_place_bytes
+        heads = pred.model(x)
+        copied = profiling.concat_bytes - copied
+        stored = profiling.concat_in_place_bytes - stored
+        kept, mask = pred.predict_batch(x)
+        wins = blocks.concat_wins
+        blocks.concat_wins = lambda t, act, folded: False
+        try:
+            before = profiling.concat_in_place_bytes
+            cat_heads = pred.model(x)
+            cat_kept, cat_mask = pred.predict_batch(x)
+            require(profiling.concat_in_place_bytes == before,
+                    "K5 stored into a concat with concat_wins patched")
+        finally:
+            blocks.concat_wins = wins
+    torch.cuda.synchronize()
+    equal = (all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                 for a, b in zip(heads, cat_heads))
+             and torch.equal(kept, cat_kept) and torch.equal(mask, cat_mask))
+    share = stored / (stored + copied)
+    out["concat"] = {"heads_and_boxes_equal_to_torch_cat": equal, "in_place_share": share,
+                     "copied_mb": copied / 1e6, "stored_in_place_mb": stored / 1e6,
+                     "B": int(x.shape[0])}
+    emit(out)
+    require(equal, "heads or boxes differ between the in-place concats and torch.cat")
+    require(share >= CONCAT_IN_PLACE_SHARE,
+            f"K5 stores {share:.3f} of the concat bytes, below {CONCAT_IN_PLACE_SHARE}")
+
+
 def phase_k8(dev):
     """K8 against the aten composition it replaced, by value, at the
     geometries the YOLOv4 and YOLOv7 cells run (B = 2 with NaN and -inf
@@ -1247,6 +1366,7 @@ def phase_k8(dev):
     aten's; its registers and spills; its launches per predict_batch; a
     YOLOv7 forward on aten's pools against K8's, heads equal."""
     from yolo_for_turbines_tpu_torch.models import blocks
+    from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
     from yolo_for_turbines_tpu_torch.ops.kernels import maxpool_kernel as mk
 
     gen = torch.Generator().manual_seed(SEED + 8)
@@ -1331,11 +1451,16 @@ def phase_k8(dev):
         pred, size = k8_model(family, dev)
         x = torch.from_numpy(np.random.default_rng(SEED + 8).uniform(
             size=(8, size, size, 3)).astype(np.float32)).to(dev)
-        mk.launches = 0
+        mk.launches = ek.launches = 0
         kept, _ = pred.predict_batch(x)
         torch.cuda.synchronize()
         per_call[family] = mk.launches
         require(bool(torch.isfinite(kept).all()), f"{family} boxes not finite")
+        if family == "yolov4":
+            out["yolov4_conv_epilogue_launches_per_predict_batch"] = ek.launches
+            require(ek.launches == K5_PER_CALL_YOLOV4, f"YOLOv4 launches K5 {ek.launches} "
+                                                       f"times per predict_batch")
+            concat_check(pred, x, {"phase": "k8", "model": "yolov4, 608px, bf16"})
         if family == "yolov7":
             with torch.inference_mode():
                 heads = pred.model(x)
@@ -1551,6 +1676,23 @@ def rtdetr_alone() -> None:
     phase_rtdetr(torch.device("cuda", 0))
 
 
+def concat_alone() -> None:
+    """The env and build lines, then phases k5, k8 and yolov7 (K5's slice
+    output and the concats written in place), on the first card."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    phase_k5(dev)
+    phase_k8(dev)
+    phase_yolov7(dev)
+
+
 def k8_alone() -> None:
     """The env and build lines, then phase k8, on the first card."""
     from yolo_for_turbines_tpu_torch.ops import kernels
@@ -1691,7 +1833,9 @@ def phase_main(dev):
 def phase_yolov7(dev):
     """YOLOv7 at 640px (80 classes, seeded folded weights) served in bf16:
     K5 once per conv in each ``predict_batch`` (92), K8 once per pool
-    pyramid or MP pool (6), K1 at the end, no K2.
+    pyramid or MP pool (6), K1 at the end, no K2; its concats written in
+    place give the heads and boxes of ``torch.cat`` bit for bit, K5 storing
+    at least CONCAT_IN_PLACE_SHARE of their bytes (``concat_check``).
     The raw heads of one image against the f32 forward on the CPU are
     printed, not gated: the cell (``perfbench``) holds YOLOv7 to its
     reference on calibrated weights."""
@@ -1735,6 +1879,7 @@ def phase_yolov7(dev):
     errs = [float((d.float().cpu() - c).norm() / c.norm()) for d, c in zip(dev_heads, cpu_heads)]
     out["head_rel_rms_err"] = errs
     emit(out)
+    concat_check(pred, x, {"phase": "yolov7", "model": out["model"]})
     require(all(c["conv_epilogue"] == K5_PER_CALL_YOLOV7 and c["greedy_nms"] >= 1
                 and c["maxpool"] == K8_PER_CALL["yolov7"]
                 and c["fused_residual_stage"] == 0 for c in per_call),

@@ -51,3 +51,48 @@ MINI_CSP_LAYERS = tuple(
     ("C", e[1]) if isinstance(e, tuple) and e[0] == "B" else e
     for e in MINI_LAYERS
 )
+
+
+def concat_routes(model, x):
+    """``model(x)`` with every folded conv on K5's route (the plain
+    version off the card), twice: with the channel concats written in place,
+    as on the card (``blocks.ChannelConcat``), and with ``torch.cat``
+    (``blocks.concat_wins`` patched to refuse). Each as (outputs, bytes
+    copied into concats, bytes K5 stored into them)."""
+    import pytest
+    import torch
+
+    from yolo_for_turbines_tpu_torch.models import blocks
+    from yolo_for_turbines_tpu_torch.utils import profiling
+
+    def run(in_place: bool):
+        with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+            mp.setattr(blocks, "epilogue_wins", lambda t, act, skip=None: True)
+            if not in_place:
+                mp.setattr(blocks, "concat_wins", lambda t, act, folded: False)
+            mp.setattr(profiling, "concat_bytes", 0)
+            mp.setattr(profiling, "concat_in_place_bytes", 0)
+            out = model(x)
+            return out, profiling.concat_bytes, profiling.concat_in_place_bytes
+
+    return run(True), run(False)
+
+
+def conv_inputs_channels_last(model, x):
+    """Whether each ``FoldedConv`` of ``model`` read a channels_last input
+    in ``model(x)``, in the order they ran."""
+    import torch
+
+    from yolo_for_turbines_tpu_torch.models.blocks import FoldedConv
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].is_contiguous(memory_format=torch.channels_last)))
+        for m in model.modules() if isinstance(m, FoldedConv)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen

@@ -12,6 +12,8 @@ to the plain version there, and so do the tests marked ``cuda`` here
 (SiLU, YOLOv7's activation), which skip without a card.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -31,7 +33,7 @@ from yolo_for_turbines_tpu_torch.ops import kernels
 from yolo_for_turbines_tpu_torch.ops.kernels import epilogue_kernel as ek
 from yolo_for_turbines_tpu_torch.parallel.spatial import Layout, create_spatial_mesh
 
-from helpers import MINI_LAYERS
+from helpers import MINI_LAYERS, concat_routes
 
 CL = torch.channels_last
 F64_ACTS = {
@@ -306,6 +308,12 @@ def test_launcher_is_declared_where_the_library_binds_it():
             'long long rows,') in source
     argtypes, _ = kernels._SIGNATURES["conv_epilogue_launch"]
     assert len(argtypes) == 7 and "epilogue.cu" in {p.name for p in kernels.sources()}
+    # the slice output: y, bias, skip, out, rows, C, pitch, keep, act, stream
+    assert ('extern "C" int conv_epilogue_slice_launch(void* y, const void* bias, const void* '
+            'skip, void* out,\n') in source
+    assert "long long rows, int c, int pitch, int keep, int act," in source
+    argtypes, restype = kernels._SIGNATURES["conv_epilogue_slice_launch"]
+    assert len(argtypes) == 10 and argtypes[4] is ctypes.c_longlong and restype is ctypes.c_int
 
 
 @pytest.fixture
@@ -436,3 +444,189 @@ def test_add_first_kernel_on_a_misaligned_view(card, which):
     else:
         got = ek.conv_epilogue(y.clone(memory_format=CL), bias, "relu", view, add_first=True)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# The result stored into a channel slice of a concat buffer
+# ---------------------------------------------------------------------------
+
+SENTINEL = -3.0  # a bf16 value the epilogue of these inputs never gives exactly
+
+
+def _buffer(b, pitch, h, w, device="cpu"):
+    buf = torch.full((b, pitch, h, w), SENTINEL, dtype=torch.bfloat16, device=device)
+    return buf.contiguous(memory_format=CL)
+
+
+# (C, the slice's channel offset, the buffer's channels): widths 8 to 2056,
+# slices at the buffer's start, middle and end, and pitches that are and are
+# not multiples of 8
+SLICES = [(8, 0, 8), (8, 8, 24), (16, 3, 21), (64, 64, 128), (128, 0, 384), (255, 1, 256),
+          (256, 256, 512), (512, 128, 1152), (1024, 0, 2048), (2056, 8, 2072)]
+
+
+@pytest.mark.parametrize("c,offset,pitch", SLICES)
+@pytest.mark.parametrize("activation,skip_order", [
+    ("identity", None), ("leaky_relu", "after"), ("mish", None), ("silu", "after"),
+    ("relu", "first"), ("identity", "first")])
+@pytest.mark.parametrize("keep", [False, True])
+def test_slice_output_is_the_plain_result(c, offset, pitch, activation, skip_order, keep):
+    """``conv_epilogue(..., out=slice)`` stores the plain version's values
+    in the slice, leaves every other channel of the buffer as it was (the
+    sentinel planted there), and with ``keep`` writes ``y`` the same (else
+    leaves it alone)."""
+    y = _nhwc((2, c, 3, 2), 90)
+    bias = _bf16((c,), 91, 0.5)
+    skip = _nhwc((2, c, 3, 2), 92) if skip_order else None
+    add_first = skip_order == "first"
+    want = ek.conv_epilogue_reference(y, bias, activation, skip, add_first=add_first)
+    buf = _buffer(2, pitch, 3, 2)
+    out = buf[:, offset:offset + c]
+    got_y = y.clone(memory_format=CL)
+    got = ek.conv_epilogue(got_y, bias, activation, skip, add_first=add_first, out=out,
+                           keep=keep)
+    assert got is (got_y if keep else out)
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    rest = torch.cat([buf[:, :offset], buf[:, offset + c:]], dim=1)
+    assert bool((rest == SENTINEL).all())
+    assert torch.equal(got_y, want if keep else y)
+
+
+def test_folded_conv_stores_into_the_slice(monkeypatch):
+    """``FoldedConv(..., out=slice)`` on K5's route (its plain version
+    here) stores the value of ``FoldedConv(...)`` in the slice and counts
+    its bytes as stored in place; off that route it copies them in and
+    counts them as a copy."""
+    from yolo_for_turbines_tpu_torch.utils import profiling
+
+    conv = _folded_conv(8, 16, 3, 1, 93, torch.bfloat16)
+    x = _nhwc((2, 8, 5, 4), 94)
+    for wins in (True, False):
+        monkeypatch.setattr(tblocks, "epilogue_wins", lambda *a, w=wins, **k: w)
+        want = conv(x, tblocks.silu)
+        buf = _buffer(2, 40, 5, 4)
+        copied, stored = profiling.concat_bytes, profiling.concat_in_place_bytes
+        kept = conv(x, tblocks.silu, out=buf[:, 16:32], keep=True)
+        assert torch.equal(buf[:, 16:32], want) and torch.equal(kept, want)
+        assert bool((buf[:, :16] == SENTINEL).all() and (buf[:, 32:] == SENTINEL).all())
+        moved = (profiling.concat_in_place_bytes - stored, profiling.concat_bytes - copied)
+        assert moved == ((want.nbytes, 0) if wins else (0, want.nbytes))
+
+
+def _slice_of(y, pitch=None, offset=8):
+    b, c, h, w = y.shape
+    pitch = pitch or c + 16
+    return _buffer(b, pitch, h, w)[:, offset:offset + c]
+
+
+def _interleaved(y, s):
+    """``y`` moved into the first rows of a pitch-32 buffer, ``s``, and that
+    buffer's channels 16-31, which lie between those rows."""
+    buf = _buffer(2, 32, 3, 3)
+    dense = buf.permute(0, 2, 3, 1).reshape(-1)[:y.numel()].view(2, 3, 3, 16)
+    return dense.permute(0, 3, 1, 2).copy_(y), s, buf[:, 16:32]
+
+
+WRONG_OUT = {
+    "shape": (lambda y, s: (y, s, _slice_of(y)[:, :-1]), "out must be"),
+    "dtype": (lambda y, s: (y, s, _slice_of(y).float()), "out must be"),
+    "NCHW buffer": (lambda y, s: (y, s, torch.zeros((2, 32, 3, 3), dtype=torch.bfloat16)[:, 8:24]),
+                    "channel slice of a channels_last buffer"),
+    "rows and columns swapped": (lambda y, s: (y, s, _buffer(2, 32, 3, 3)[:, 8:24].mT),
+                                 "channel slice of a channels_last buffer"),
+    "is y": (lambda y, s: (y, s, y), "overlaps y or skip"),
+    "between y's rows": (_interleaved, "overlaps y or skip"),
+    "is skip": (lambda y, s: (y, s, s), "overlaps y or skip"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRONG_OUT))
+def test_wrapper_rejects_a_bad_output(case):
+    make, match = WRONG_OUT[case]
+    y, s, out = make(_nhwc((2, 16, 3, 3), 95), _nhwc((2, 16, 3, 3), 96))
+    with pytest.raises(ValueError, match=match):
+        ek.conv_epilogue(y, _bf16((16,), 97), "leaky_relu", s, out=out)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,offset,pitch", SLICES + [(24, 8, 88), (21, 5, 27)])
+@pytest.mark.parametrize("activation,skip_order", [
+    ("leaky_relu", None), ("mish", None), ("silu", None), ("silu", "after"),
+    ("relu", "first"), ("identity", None)])
+@pytest.mark.parametrize("keep", [False, True])
+def test_slice_kernel_equals_the_plain_version(card, c, offset, pitch, activation, skip_order,
+                                               keep):
+    """K5's slice output on the card: the plain version's bits in the slice
+    (the 16-byte variant where C, the offset and the pitch are multiples of
+    8, the one-element variant elsewhere), the sentinel everywhere else,
+    and ``y`` rewritten only with ``keep``."""
+    y = _nhwc((3, c, 7, 9), 98).to(card)
+    bias = _bf16((c,), 99, 0.5).to(card)
+    skip = _nhwc((3, c, 7, 9), 100).to(card) if skip_order else None
+    add_first = skip_order == "first"
+    want = ek.conv_epilogue_reference(y, bias, activation, skip, add_first=add_first)
+    buf = _buffer(3, pitch, 7, 9, card)
+    out = buf[:, offset:offset + c]
+    got_y = y.clone(memory_format=CL)
+    before = ek.launches
+    ek.conv_epilogue(got_y, bias, activation, skip, add_first=add_first, out=out, keep=keep)
+    assert ek.launches == before + 1
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    rest = torch.cat([buf[:, :offset], buf[:, offset + c:]], dim=1)
+    assert bool((rest == SENTINEL).all())
+    assert torch.equal(got_y.view(torch.int16), (want if keep else y).view(torch.int16))
+
+
+def test_yolov3_concats_are_copies_into_one_buffer():
+    """YOLOv3's concats ``[upsampled, route]`` on the card's route on the
+    CPU: neither part is a K5 result, so both are copied into the buffer
+    (the upsampled half from a broadcast view of the trunk, with no
+    intermediate): heads equal the ``torch.cat`` route's bit for bit, and
+    the bytes copied are the concats' bytes."""
+    model = _mini_model(torch.float32)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    (got, copied, stored), (want, cat_copied, cat_stored) = concat_routes(model, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert stored == cat_stored == 0 and copied == cat_copied > 0
+
+
+class _Grad(_Like):
+    def __init__(self, requires_grad=False, **kw):
+        super().__init__(**kw)
+        self.requires_grad = requires_grad
+
+
+@pytest.mark.parametrize("x,folded,grad,wins", [
+    (_Grad(), True, False, True),
+    (_Grad(), False, False, False),  # the trainable model's ConvBlocks
+    (_Grad(requires_grad=True), True, True, False),  # autograd
+    (_Grad(requires_grad=True), True, False, True),  # no grad asked
+    (_Grad(cuda=False), True, False, False),
+    (_Grad(dtype=torch.float32), True, False, False),
+    (_Grad(nhwc=False), True, False, False),
+])
+def test_concat_routing_takes_only_the_folded_card_route(x, folded, grad, wins):
+    with torch.set_grad_enabled(grad):
+        assert tblocks.concat_wins(x, tblocks.silu, folded) is wins
+
+
+@pytest.mark.parametrize("in_place", [True, False])
+def test_channel_concat_builds_what_torch_cat_builds(monkeypatch, in_place):
+    """A conv part kept and one not, a part put in and an upsampled one, in
+    any order: the buffer (or ``torch.cat``'s result) equals the concat of
+    the parts, channels_last."""
+    monkeypatch.setattr(tblocks, "epilogue_wins", lambda *a, **k: True)
+    monkeypatch.setattr(tblocks, "concat_wins", lambda x, act, folded: in_place and folded)
+    x = _nhwc((2, 8, 6, 4), 110, torch.float32)
+    conv, conv2 = (_folded_conv(8, n, 1, 1, 111 + n, torch.float32) for n in (16, 8))
+    route = _nhwc((2, 24, 6, 4), 113, torch.float32)
+    low = _nhwc((2, 8, 3, 2), 114, torch.float32)
+    cat = tblocks.ChannelConcat(x, tblocks.leaky_relu, (8, 16, 24, 8), (6, 4), folded=True)
+    cat.put(2, route)
+    kept = cat.conv(1, conv, x, tblocks.leaky_relu, keep=True)
+    cat.upsampled(3, low)
+    cat.conv(0, conv2, kept[:, :8].contiguous(memory_format=CL), tblocks.leaky_relu)
+    got = cat.result()
+    want = torch.cat([conv2(kept[:, :8].contiguous(memory_format=CL), tblocks.leaky_relu),
+                      conv(x, tblocks.leaky_relu), route, tblocks.upsample2x(low)], dim=1)
+    assert (cat.buf is not None) == in_place
+    assert torch.equal(got, want) and got.is_contiguous(memory_format=CL)

@@ -18,11 +18,12 @@ from perfbench import traffic, weights_rtdetr
 from perfbench.drivers import offline_rtdetr
 from perfbench.manifest import HERE
 from perfbench.reference import rtdetr as rt
+from helpers import concat_routes, conv_inputs_channels_last
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from yolo_for_turbines_tpu_torch import config as cfg
 from yolo_for_turbines_tpu_torch.config import ModelConfig
 from yolo_for_turbines_tpu_torch.inference import Predictor
-from yolo_for_turbines_tpu_torch.models import rtdetr
+from yolo_for_turbines_tpu_torch.models import blocks, rtdetr
 from yolo_for_turbines_tpu_torch.models.blocks import (
     FoldedConv,
     PooledConvBlock,
@@ -323,6 +324,28 @@ def test_every_conv_takes_channels_last_input(small):
     finally:
         for h in hooks:
             h.remove()
+    assert len(seen) == 41 and all(seen)
+
+
+def test_concats_written_in_place_give_the_same_outputs(small):
+    """CCFM's concats on the card's route on the CPU (every folded conv
+    through K5's plain version, each concat a buffer its parts are written
+    into): logits, boxes, memory and selection equal the ``torch.cat``
+    route's bit for bit; each concat is half K5's (the input projection,
+    the stride-2 conv) and half copied (the upsampled lateral output, the
+    top-down output), together every concat's bytes."""
+    c, x, unfused = small
+    model = _predictor(c, unfused).model
+    (got, copied, stored), (want, cat_copied, cat_stored) = concat_routes(model, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cat_stored == 0 and copied == stored == cat_copied // 2 > 0
+
+
+def test_every_conv_takes_channels_last_input_with_the_concats_in_place(small, monkeypatch):
+    c, x, unfused = small
+    model = _predictor(c, unfused).model
+    monkeypatch.setattr(blocks, "epilogue_wins", lambda t, act, skip=None: True)
+    seen = conv_inputs_channels_last(model, x)
     assert len(seen) == 41 and all(seen)
 
 

@@ -18,6 +18,7 @@ from perfbench.reference import model as ref
 from perfbench.reference import postprocess as post
 from perfbench.reference import yolov4 as v4
 from perfbench import traffic, weights_yolov4
+from helpers import concat_routes, conv_inputs_channels_last
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from yolo_for_turbines_tpu_torch import config as cfg
 from yolo_for_turbines_tpu_torch.config import ModelConfig
@@ -242,6 +243,55 @@ def _reckoned_concat_bytes(plan, side: int, batch: int, itemsize: int = 4) -> in
         elif isinstance(e, PlanUpsample):
             raise AssertionError("no LIFO upsample in YOLOv4")
     return total * batch * itemsize
+
+
+def _reckoned_copied_bytes(plan, side: int, batch: int, itemsize: int = 4) -> int:
+    """Bytes the concats copy when they are written in place off the card:
+    SPP's pyramid (aten's pools and their ``torch.cat`` there), the
+    upsampled halves and the saved routes; K5 stores every other part."""
+    total, c, named = 0, plan[0].in_ch, {}
+    for e in plan:
+        if isinstance(e, PlanConv):
+            side, c = (side - 1) // e.stride + 1, e.out_ch
+        elif isinstance(e, PlanSPP):
+            c *= len(e.kernels) + 1
+            total += c * side * side
+        elif isinstance(e, PlanSave):
+            named[e.name] = c
+        elif isinstance(e, PlanLateral):
+            total += c * 4 * side * side
+            side, c = 2 * side, c + e.out_ch
+        elif isinstance(e, PlanJoin):
+            total += named[e.route] * side * side
+            c += named[e.route]
+    return total * batch * itemsize
+
+
+def test_concats_written_in_place_give_the_same_heads(small):
+    """The card's route on the CPU (every folded conv through K5's plain
+    version, every concat a buffer its parts are written into): the heads
+    equal the ``torch.cat`` route's bit for bit; the bytes copied in and
+    the bytes K5 stored add up to every concat's, and K5 stores all but
+    SPP's pyramid, the upsampled halves and the saved routes."""
+    c, plan, tree, x = small
+    model = _predictor(c, tree).model
+    (got, copied, stored), (want, cat_copied, cat_stored) = concat_routes(model, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    total = _reckoned_concat_bytes(model.plan, SIZE, 4)
+    assert (cat_copied, cat_stored) == (total, 0)
+    assert copied + stored == total
+    assert copied == _reckoned_copied_bytes(model.plan, SIZE, 4)
+
+
+def test_every_conv_takes_channels_last_input_with_the_concats_in_place(small, monkeypatch):
+    """On the card's route the fuse convs read the concat buffers, the
+    convs after a lateral or a join too: all channels_last."""
+    c, plan, tree, x = small
+    model = _predictor(c, tree).model
+    monkeypatch.setattr(blocks, "epilogue_wins", lambda t, act, skip=None: True)
+    monkeypatch.setattr(profiling, "concat_in_place_bytes", 0)
+    seen = conv_inputs_channels_last(model, x)
+    assert len(seen) == 110 and all(seen) and profiling.concat_in_place_bytes > 0
 
 
 def test_spans_once_per_forward_and_the_concat_counter(small):

@@ -19,10 +19,12 @@ from perfbench.manifest import HERE
 from perfbench.reference import model as ref
 from perfbench.reference import postprocess as post
 from perfbench.reference import yolov7 as v7
+from helpers import concat_routes, conv_inputs_channels_last
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from yolo_for_turbines_tpu_torch import config as cfg
 from yolo_for_turbines_tpu_torch.config import ModelConfig
 from yolo_for_turbines_tpu_torch.inference import Predictor
+from yolo_for_turbines_tpu_torch.models import blocks
 from yolo_for_turbines_tpu_torch.models.blocks import (
     FoldedConv,
     ImplicitConv,
@@ -379,6 +381,60 @@ def test_spans_per_forward_and_the_concat_counter(small):
     counted = profiling.concat_bytes - before
     assert counted == _reckoned_concat_bytes(model.plan, SIZE, 4)
     assert counted == 4 * 4 * v7.concat_elements(c, SIZE)
+
+
+def _reckoned_copied_bytes(plan, side: int, batch: int, itemsize: int = 4) -> int:
+    """Bytes the concats copy when they are written in place off the card:
+    SPPCSPC's pyramid (aten's pools and their ``torch.cat`` there), the
+    upsampled halves and MP's saved routes; K5 stores every other part."""
+    total, c, named = 0, plan[0].in_ch, {}
+    for e in plan:
+        if isinstance(e, PlanConv):
+            side, c = (side - 1) // e.stride + 1, e.out_ch
+        elif isinstance(e, PlanELAN):
+            c = e.out_ch
+        elif isinstance(e, PlanMP):
+            side //= 2
+            route = named[e.route] if e.route else 0
+            total += route * side * side
+            c = 2 * e.out_ch + route
+        elif isinstance(e, PlanSPPCSPC):
+            total += 4 * e.out_ch * side * side
+            c = e.out_ch
+        elif isinstance(e, PlanSave):
+            named[e.name] = c
+        elif isinstance(e, PlanLateral):
+            total += c * 4 * side * side
+            side, c = 2 * side, c + e.out_ch
+    return total * batch * itemsize
+
+
+def test_concats_written_in_place_give_the_same_heads(small):
+    """The card's route on the CPU (every folded conv through K5's plain
+    version, every concat a buffer its parts are written into, the ELANs'
+    chain parts kept as tensors too): the heads equal the ``torch.cat``
+    route's bit for bit; the bytes copied in and the bytes K5 stored add up
+    to every concat's, and K5 stores all but SPPCSPC's pyramid, the
+    upsampled halves and MP's routes."""
+    c, plan, tree, x = small
+    model = _predictor(c, tree).model
+    (got, copied, stored), (want, cat_copied, cat_stored) = concat_routes(model, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    total = _reckoned_concat_bytes(model.plan, SIZE, 4)
+    assert (cat_copied, cat_stored) == (total, 0)
+    assert copied + stored == total
+    assert copied == _reckoned_copied_bytes(model.plan, SIZE, 4)
+
+
+def test_every_conv_takes_channels_last_input_with_the_concats_in_place(small, monkeypatch):
+    """On the card's route the fuse convs read the concat buffers and the
+    chain convs the kept parts: all channels_last."""
+    c, plan, tree, x = small
+    model = _predictor(c, tree).model
+    monkeypatch.setattr(blocks, "epilogue_wins", lambda t, act, skip=None: True)
+    monkeypatch.setattr(profiling, "concat_in_place_bytes", 0)
+    seen = conv_inputs_channels_last(model, x)
+    assert len(seen) == 92 and all(seen) and profiling.concat_in_place_bytes > 0
 
 
 def test_every_conv_takes_channels_last_input(small):

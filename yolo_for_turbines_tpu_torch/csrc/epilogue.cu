@@ -31,6 +31,17 @@
 // aligned (a view into another tensor), the launcher takes the variant of
 // the same kernel that moves one element at a time.
 //
+// The result may go elsewhere (conv_epilogue_slice_launch): into a channel
+// slice of a channels_last concat buffer, out[r * pitch + c] (out the
+// slice's first channel, pitch the buffer's channels), so that the concat
+// needs no copy pass; with `keep`, into y as well, for a part that a later
+// conv also reads (cuDNN copies a strided input to dense memory first). A
+// thread's vectors lie a whole number of rows apart (kVec * stride is a
+// multiple of C), so its store address advances by a fixed step and the loop
+// still computes no index modulo. The 16-byte variant takes C, the slice's
+// start and the pitch on 8-element boundaries (every concat part of the
+// models); any other slice takes the one-element variant.
+//
 // Exactness: the f32 operations of the plain torch version in its order,
 // with _rn intrinsics so that nvcc contracts no multiply and add into an
 // FMA; leaky and identity equal it bit for bit; mish calls tanhf, log1pf
@@ -55,6 +66,8 @@ constexpr int kUnroll = 4;  // vectors in flight per thread
 constexpr int kMaxDevices = 64;
 
 enum Act { kIdentity = 0, kLeaky = 1, kMish = 2, kSilu = 3, kRelu = 4 };
+// where the result goes: over y, into the slice, or into both
+enum Out { kInPlace = 0, kSlice = 1, kBoth = 2 };
 // or'd into `act`: the skip joins before the activation
 constexpr int kAddFirst = 16;
 
@@ -103,12 +116,13 @@ __device__ __forceinline__ typename Pack<kVec>::T apply(typename Pack<kVec>::T y
 }
 
 // n elements; `stride` threads take part, a multiple of the channel period,
-// and thread t handles vectors t, t + stride, t + 2 * stride, ...
-template <int kVec, int kAct, bool kSkip, bool kFirst = false>
+// and thread t handles vectors t, t + stride, t + 2 * stride, ...; with kOut
+// other than kInPlace, out and pitch as conv_epilogue_slice_launch's
+template <int kVec, int kAct, bool kSkip, bool kFirst = false, int kOut = kInPlace>
 __global__ void __launch_bounds__(kThreads)
 conv_epilogue_kernel(__nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ skip, long long n, int c, long long stride,
-                     int period) {
+                     int period, __nv_bfloat16* __restrict__ out, int pitch) {
     using V = typename Pack<kVec>::T;
     const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
     if (tid >= stride) return;
@@ -121,9 +135,16 @@ conv_epilogue_kernel(__nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restr
 #pragma unroll
     for (int j = 0; j < kVec; ++j) b[j] = __bfloat162float(bias[(c0 + j) % c]);
 
+    // the slice: this thread's first vector lies in row kVec * tid / C, and
+    // each stride moves it kVec * stride / C rows on (counted in vectors)
+    const long long o0 = (kVec * tid / c * pitch + c0) / kVec;
+    const long long o_step = kVec * stride / c * pitch / kVec;
+
     V* yp = reinterpret_cast<V*>(y);
     const V* sp = reinterpret_cast<const V*>(skip);
-    for (long long base = tid; base < n_vec; base += kUnroll * stride) {
+    V* op = reinterpret_cast<V*>(out);
+    long long k = 0;  // strides from tid to base
+    for (long long base = tid; base < n_vec; base += kUnroll * stride, k += kUnroll) {
         V yv[kUnroll], sv[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -137,15 +158,19 @@ conv_epilogue_kernel(__nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restr
         for (int u = 0; u < kUnroll; ++u) {
             const long long v = base + u * stride;
             if (v < n_vec) {
-                yp[v] = apply<kVec, kAct, kSkip, kFirst>(yv[u], b, kSkip ? sv[u] : yv[u]);
+                const V r = apply<kVec, kAct, kSkip, kFirst>(yv[u], b, kSkip ? sv[u] : yv[u]);
+                if (kOut != kSlice) yp[v] = r;
+                if (kOut != kInPlace) op[o0 + (k + u) * o_step] = r;
             }
         }
     }
     if (kVec > 1 && tid == 0) {  // the last n % kVec elements
         for (long long e = n_vec * kVec; e < n; ++e) {
             const float be = __bfloat162float(bias[e % c]);
-            y[e] = __float2bfloat16_rn(
+            const __nv_bfloat16 r = __float2bfloat16_rn(
                 epilogue<kAct, kSkip, kFirst>(y[e], be, kSkip ? skip[e] : y[e]));
+            if (kOut != kSlice) y[e] = r;
+            if (kOut != kInPlace) out[e / c * pitch + e % c] = r;
         }
     }
 }
@@ -177,10 +202,17 @@ int resident_blocks(Kernel kernel, int* cached) {
     return cached[dev];
 }
 
-template <int kVec, int kAct, bool kSkip, bool kFirst = false>
-int launch(void* y, const void* bias, const void* skip, long long n, int c, cudaStream_t s) {
+// where a launch stores its result: nothing for kInPlace
+struct Dest {
+    void* out;
+    int pitch;
+};
+
+template <int kVec, int kAct, bool kSkip, bool kFirst, int kOut>
+int launch(void* y, const void* bias, const void* skip, long long n, int c, Dest d,
+           cudaStream_t s) {
     static int cached[kMaxDevices] = {};
-    auto kernel = conv_epilogue_kernel<kVec, kAct, kSkip, kFirst>;
+    auto kernel = conv_epilogue_kernel<kVec, kAct, kSkip, kFirst, kOut>;
     const int resident = resident_blocks(kernel, cached);
     if (resident <= 0) return static_cast<int>(cudaErrorInvalidDevice);
     const int period = c / gcd(c, kVec);  // vectors after which the channels repeat
@@ -195,35 +227,38 @@ int launch(void* y, const void* bias, const void* skip, long long n, int c, cuda
     const long long stride = blocks * kThreads / period * period;
     kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<__nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(bias),
-        static_cast<const __nv_bfloat16*>(skip), n, c, stride, period);
+        static_cast<const __nv_bfloat16*>(skip), n, c, stride, period,
+        static_cast<__nv_bfloat16*>(d.out), d.pitch);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int kVec, int kAct>
-int launch_skip(void* y, const void* bias, const void* skip, long long n, int c, cudaStream_t s) {
-    return skip ? launch<kVec, kAct, true>(y, bias, skip, n, c, s)
-                : launch<kVec, kAct, false>(y, bias, skip, n, c, s);
+template <int kVec, int kAct, int kOut>
+int launch_skip(void* y, const void* bias, const void* skip, long long n, int c, Dest d,
+                cudaStream_t s) {
+    return skip ? launch<kVec, kAct, true, false, kOut>(y, bias, skip, n, c, d, s)
+                : launch<kVec, kAct, false, false, kOut>(y, bias, skip, n, c, d, s);
 }
 
 // the add-first order, which only a skip makes differ from the other
-template <int kVec, int kAct>
-int launch_first(void* y, const void* bias, const void* skip, long long n, int c,
+template <int kVec, int kAct, int kOut>
+int launch_first(void* y, const void* bias, const void* skip, long long n, int c, Dest d,
                  cudaStream_t s) {
-    return skip ? launch<kVec, kAct, true, true>(y, bias, skip, n, c, s)
-                : launch<kVec, kAct, false>(y, bias, skip, n, c, s);
+    return skip ? launch<kVec, kAct, true, true, kOut>(y, bias, skip, n, c, d, s)
+                : launch<kVec, kAct, false, false, kOut>(y, bias, skip, n, c, d, s);
 }
 
-template <int kVec>
-int launch_act(void* y, const void* bias, const void* skip, long long n, int c, int act,
+template <int kVec, int kOut>
+int launch_act(void* y, const void* bias, const void* skip, long long n, int c, int act, Dest d,
                cudaStream_t s) {
     switch (act) {
-        case kIdentity: return launch_skip<kVec, kIdentity>(y, bias, skip, n, c, s);
-        case kLeaky: return launch_skip<kVec, kLeaky>(y, bias, skip, n, c, s);
-        case kMish: return launch_skip<kVec, kMish>(y, bias, skip, n, c, s);
-        case kSilu: return launch_skip<kVec, kSilu>(y, bias, skip, n, c, s);
-        case kRelu: return launch_skip<kVec, kRelu>(y, bias, skip, n, c, s);
-        case kAddFirst | kIdentity: return launch_first<kVec, kIdentity>(y, bias, skip, n, c, s);
-        case kAddFirst | kRelu: return launch_first<kVec, kRelu>(y, bias, skip, n, c, s);
+        case kIdentity: return launch_skip<kVec, kIdentity, kOut>(y, bias, skip, n, c, d, s);
+        case kLeaky: return launch_skip<kVec, kLeaky, kOut>(y, bias, skip, n, c, d, s);
+        case kMish: return launch_skip<kVec, kMish, kOut>(y, bias, skip, n, c, d, s);
+        case kSilu: return launch_skip<kVec, kSilu, kOut>(y, bias, skip, n, c, d, s);
+        case kRelu: return launch_skip<kVec, kRelu, kOut>(y, bias, skip, n, c, d, s);
+        case kAddFirst | kIdentity:
+            return launch_first<kVec, kIdentity, kOut>(y, bias, skip, n, c, d, s);
+        case kAddFirst | kRelu: return launch_first<kVec, kRelu, kOut>(y, bias, skip, n, c, d, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -460,8 +495,37 @@ extern "C" int conv_epilogue_launch(void* y, const void* bias, const void* skip,
     if (n == 0) return static_cast<int>(cudaSuccess);
     const auto s = static_cast<cudaStream_t>(stream);
     const bool vec = aligned16(y) && (skip == nullptr || aligned16(skip));
-    return vec ? launch_act<8>(y, bias, skip, n, c, act, s)
-               : launch_act<1>(y, bias, skip, n, c, act, s);
+    const Dest d{nullptr, 0};
+    return vec ? launch_act<8, kInPlace>(y, bias, skip, n, c, act, d, s)
+               : launch_act<1, kInPlace>(y, bias, skip, n, c, act, d, s);
+}
+
+// The same epilogue with its result stored into a channel slice of a
+// channels_last buffer: out[r * pitch + c] for row r and channel c < C, out
+// the slice's first element (the buffer's start plus the slice's channel
+// offset), pitch >= C the buffer's channels; the slice overlaps neither y
+// nor skip. With keep != 0 the result goes into y as well, else y is only
+// read. 16-byte vectors when y, skip and out are 16-byte aligned and C and
+// pitch multiples of 8, one element at a time otherwise. Returns
+// cudaGetLastError().
+extern "C" int conv_epilogue_slice_launch(void* y, const void* bias, const void* skip, void* out,
+                                          long long rows, int c, int pitch, int keep, int act,
+                                          void* stream) {
+    if (rows < 0 || c <= 0 || pitch < c || out == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long n = rows * c;
+    if (n == 0) return static_cast<int>(cudaSuccess);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool vec = aligned16(y) && (skip == nullptr || aligned16(skip)) && aligned16(out) &&
+                     c % 8 == 0 && pitch % 8 == 0;
+    const Dest d{out, pitch};
+    if (keep) {
+        return vec ? launch_act<8, kBoth>(y, bias, skip, n, c, act, d, s)
+                   : launch_act<1, kBoth>(y, bias, skip, n, c, act, d, s);
+    }
+    return vec ? launch_act<8, kSlice>(y, bias, skip, n, c, act, d, s)
+               : launch_act<1, kSlice>(y, bias, skip, n, c, act, d, s);
 }
 
 // K6. y (rows, C) i32; yb (rows, C) i32 or null (the second branch, with

@@ -8,8 +8,9 @@ memory is NHWC) and conv weights are OIHW; the JAX package keeps NHWC / HWIO.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -349,19 +350,32 @@ class FoldedConv(nn.Module):
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
 
-    def forward(self, x, act=None, rows=None, skip=None, add_first=False):
+    def forward(self, x, act=None, rows=None, skip=None, add_first=False, out=None,
+                keep=False):
         """``skip + act(conv(x) + bias)``, or ``act(conv(x) + bias + skip)``
         with ``add_first``; ``rows`` as ``ConvBlock``'s (SP keeps the
-        separate ops)."""
+        separate ops). ``out``: a channel slice of a concat buffer
+        (``ChannelConcat``) that takes the result, which K5 stores there
+        itself (counted in ``profiling.concat_in_place_bytes``); with
+        ``keep`` the result is also returned as a tensor of its own, for a
+        later conv to read. Without K5 the result is copied in (counted in
+        ``profiling.concat_bytes``)."""
         if rows is None and epilogue_wins(x, act, skip):
             y = conv2d(x, self.weight, self.stride, self.padding)
             order = {"add_first": True} if add_first else {}  # the Darknet order by default
+            if out is not None:
+                profiling.concat_in_place_bytes += out.numel() * out.element_size()
+                order.update(out=out, keep=keep)
             return conv_epilogue(y, self.bias, EPILOGUE_ACTIVATIONS[act], skip, **order)
         if rows is None:
             y = conv2d(x, self.weight, self.stride, self.padding, bias=self.bias)
         else:
             y = rows.conv(x, self.weight, self.bias, self.stride, self.padding)
-        return _activate(y, act, skip, add_first)
+        y = _activate(y, act, skip, add_first)
+        if out is None:
+            return y
+        _copy_into(out, y)
+        return y if keep else out
 
 
 def residual_blocks(width: int, hidden: int, n: int, conv) -> nn.ModuleList:
@@ -381,6 +395,76 @@ def cat_channels(parts):
     out = torch.cat(parts, dim=1)
     profiling.concat_bytes += out.nbytes
     return out
+
+
+def concat_wins(x, act, folded: bool) -> bool:
+    """Whether a channel concat whose parts are made from ``x`` is written
+    in place (``ChannelConcat``): its conv parts come from ``FoldedConv``s
+    (``folded``), K5 takes ``x`` and ``act`` (``epilogue_wins``: bf16 on
+    CUDA, channels_last) and no gradient is asked of ``x``. The CPU,
+    float32, the trainable model and autograd keep ``torch.cat`` (SP too:
+    ``ChannelConcat`` takes its ``rows``)."""
+    return (folded and epilogue_wins(x, act)
+            and not (torch.is_grad_enabled() and x.requires_grad))
+
+
+def _copy_into(slot, part) -> None:
+    """One copy pass of ``part`` into its ``slot``, counted as concat bytes."""
+    slot.copy_(part)
+    profiling.concat_bytes += slot.numel() * slot.element_size()
+
+
+class ChannelConcat:
+    """The channel concat ``[part 0, part 1, ...]`` of (B, ``widths[i]``, H,
+    W) parts (``size`` = (H, W)), handed in one by one in any order.
+
+    Where ``concat_wins(like, act, folded)`` holds (and ``rows`` is None),
+    the (B, sum(widths), H, W) channels_last buffer is allocated before any
+    part and each part is written into its channel slice: a conv's result
+    by K5 itself (``FoldedConv(..., out=slice)``), any other part by one
+    copy, an upsampled one read from a broadcast view of its source. The
+    concat then costs no pass of its own. Elsewhere the parts are kept and
+    ``result()`` is ``cat_channels`` of them, as before."""
+
+    def __init__(self, like, act, widths: Sequence[int], size: Tuple[int, int], folded: bool,
+                 rows=None):
+        self.parts = [None] * len(widths)
+        self.starts = list(itertools.accumulate(widths, initial=0))
+        self.buf = None
+        if rows is None and concat_wins(like, act, folded):
+            self.buf = torch.empty((like.shape[0], self.starts[-1], *size), dtype=like.dtype,
+                                   device=like.device, memory_format=torch.channels_last)
+
+    def _slot(self, i: int):
+        return self.buf[:, self.starts[i]:self.starts[i + 1]]
+
+    def conv(self, i: int, conv, x, act, keep: bool = False, **kw):
+        """Part ``i`` is ``conv(x, act, **kw)``; with ``keep`` (a part a
+        later conv reads too) it is returned as a dense tensor of its own."""
+        if self.buf is None:
+            self.parts[i] = conv(x, act, **kw)
+            return self.parts[i]
+        return conv(x, act, out=self._slot(i), keep=keep, **kw)
+
+    def put(self, i: int, part) -> None:
+        """Part ``i`` is ``part``, made elsewhere (a saved route)."""
+        if self.buf is None:
+            self.parts[i] = part
+        else:
+            _copy_into(self._slot(i), part)
+
+    def upsampled(self, i: int, x) -> None:
+        """Part ``i`` is ``upsample2x(x)``."""
+        if self.buf is None:
+            self.parts[i] = upsample2x(x)
+            return
+        b, c, h, w = x.shape
+        nearest = x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2)
+        _copy_into(self._slot(i).unflatten(3, (w, 2)).unflatten(2, (h, 2)), nearest)
+
+    def result(self):
+        """The concat: the buffer, or ``cat_channels`` of the parts."""
+        return cat_channels(self.parts) if self.buf is None else self.buf
 
 
 def upsample2x(x):

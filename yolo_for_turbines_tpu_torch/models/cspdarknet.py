@@ -18,7 +18,7 @@ import dataclasses
 
 import torch.nn as nn
 
-from .blocks import ConvBlock, FoldedConv, cat_channels, residual_blocks
+from .blocks import ChannelConcat, ConvBlock, FoldedConv, residual_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +99,18 @@ class _Stage(nn.Module):
         self.fuse = conv(*shapes["fuse"])
 
     def forward(self, x, act, rows=None):
-        shortcut = self.split1(x, act, rows)
+        """The concat ``[transition, split1]`` is written in place where
+        ``blocks.ChannelConcat`` can (both parts are the stage's own convs'
+        results, which nothing else reads)."""
+        bc = self.entry.branch_ch
+        folded = isinstance(self.fuse, FoldedConv)
+        cat = ChannelConcat(x, act, (bc, bc), x.shape[2:], folded, rows)
+        cat.conv(1, self.split1, x, act, rows=rows)
         y = self.split2(x, act, rows)
         for blk in self.blocks:
             y = blk["conv2"](blk["conv1"](y, act, rows), act, rows, skip=y)
-        y = self.transition(y, act, rows)
-        return self.fuse(cat_channels([y, shortcut]), act, rows)
+        cat.conv(0, self.transition, y, act, rows=rows)
+        return self.fuse(cat.result(), act, rows)
 
 
 class TrainableCSPStage(_Stage):

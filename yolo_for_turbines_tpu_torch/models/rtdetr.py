@@ -85,17 +85,16 @@ import torch.nn.functional as F
 from ..ops.kernels import deform_kernel
 from ..utils import profiling
 from .blocks import (
+    ChannelConcat,
     ConvBlock,
     FoldedConv,
     LayerNorm,
     Linear,
     PooledConvBlock,
     RepConvBlock,
-    cat_channels,
     maxpool3x3s2,
     relu,
     silu,
-    upsample2x,
 )
 
 # rtdetr_r50vd: PResNet depth 50 variant d, HybridEncoder, RTDETRTransformer
@@ -360,22 +359,33 @@ class HybridEncoder(nn.Module):
         return self._pos[key]
 
     def forward(self, feats) -> List[torch.Tensor]:
-        proj = [conv(f) for conv, f in zip(self.input_proj, feats)]
-        top = proj[-1]
+        """CCFM's concats are ``blocks.ChannelConcat``s: the top-down one
+        takes the upsampled lateral output by a copy and the level's input
+        projection from K5, the bottom-up one the stride-2 conv from K5 and
+        the top-down output by a copy."""
+        hidden = self.hidden
+        folded = isinstance(self.input_proj[0], FoldedConv)
+        top = self.input_proj[-1](feats[-1])
         b, c, h, w = top.shape
         # channels_last storage is (B, H, W, C): the tokens row-major, free
         s = top.permute(0, 2, 3, 1).reshape(b, h * w, c)
         s = self.encoder[0].layers[0](s, self._pos_embed(h, w, s))
-        proj[-1] = s.view(b, h, w, c).permute(0, 3, 1, 2)
-        inner = [proj[-1]]
-        for k, idx in enumerate(range(len(proj) - 1, 0, -1)):
+        inner = [s.view(b, h, w, c).permute(0, 3, 1, 2)]
+        for k, idx in enumerate(range(len(feats) - 1, 0, -1)):
             high = self.lateral_convs[k](inner[0], silu)
             inner[0] = high
-            inner.insert(0, self.fpn_blocks[k](cat_channels([upsample2x(high), proj[idx - 1]])))
+            f = feats[idx - 1]
+            cat = ChannelConcat(f, None, (hidden, hidden), f.shape[2:], folded)
+            cat.upsampled(0, high)
+            cat.conv(1, self.input_proj[idx - 1], f, None)
+            inner.insert(0, self.fpn_blocks[k](cat.result()))
         outs = [inner[0]]
-        for k in range(len(proj) - 1):
-            down = self.downsample_convs[k](outs[-1], silu)
-            outs.append(self.pan_blocks[k](cat_channels([down, inner[k + 1]])))
+        for k in range(len(feats) - 1):
+            cat = ChannelConcat(outs[-1], silu, (hidden, hidden), inner[k + 1].shape[2:],
+                                folded)
+            cat.conv(0, self.downsample_convs[k], outs[-1], silu)
+            cat.put(1, inner[k + 1])
+            outs.append(self.pan_blocks[k](cat.result()))
         return outs
 
 

@@ -55,13 +55,13 @@ from ..ops.kernels.resblock_kernel import (
 from ..utils.profiling import span
 from . import rtdetr
 from .blocks import (
+    ChannelConcat,
     ConvBlock,
     FoldedConv,
     ImplicitConv,
     LayerNorm,
     Linear,
     RepConvBlock,
-    cat_channels,
     get_activation,
     maxpool2d,
     maxpool_pyramid,
@@ -923,11 +923,18 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     ``forward.elan`` and each ``PlanSPPCSPC`` inside ``forward.sppcspc``, a
     ``PlanMP`` joins its named route; RT-DETR's entries hand their levels
     on, each inside its span (``detr.backbone``, ``detr.encoder``,
-    ``detr.decoder``), and the decoder's outputs are the result. Every channel concat is counted in
-    ``utils/profiling.py::concat_bytes``, but for SPP's and SPPCSPC's pool
-    pyramids on the card, which K8 writes without one
-    (``blocks.maxpool_pyramid``). Every max pool runs inside a span
-    ``forward.pool`` of its own.
+    ``detr.decoder``), and the decoder's outputs are the result. Every max
+    pool runs inside a span ``forward.pool`` of its own.
+
+    Every channel concat is a ``blocks.ChannelConcat``: on the folded
+    model's card route its buffer is allocated first and each part written
+    into it, the lateral 1x1 by K5 and the conv before a ``PlanJoin`` too
+    (the trunk part), the upsampled trunk and the saved routes by a copy;
+    elsewhere ``torch.cat``. Its bytes are counted in
+    ``utils/profiling.py::concat_bytes`` (copy passes) and
+    ``concat_in_place_bytes`` (K5's stores), but for SPP's and SPPCSPC's
+    pool pyramids on the card, which K8 writes without a concat
+    (``blocks.maxpool_pyramid``).
 
     With a ``layout``, ``rows`` says how each activation lies on the mesh;
     ``layout.constrain`` re-lays it where the height changes (the JAX
@@ -942,10 +949,19 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
     preds: List[torch.Tensor] = []
     routes: List[torch.Tensor] = []
     named = {}
+    folded = isinstance(model, FoldedYOLOv3)
+    join = None  # the next PlanJoin's concat, its trunk part written by the conv before it
     for name, part in model._parts:
         with _NO_SPAN if name is None else span(name):
-            for entry, layer in part:
-                if isinstance(entry, (PlanConv, PlanMaxPool)):
+            for i, (entry, layer) in enumerate(part):
+                following = part[i + 1][0] if i + 1 < len(part) else None
+                if isinstance(entry, PlanConv) and isinstance(following, PlanJoin) and (
+                        rows is None):
+                    route = named[following.route]
+                    join = ChannelConcat(x, act, (entry.out_ch, route.shape[1]),
+                                         route.shape[2:], folded)
+                    x = join.conv(0, layer, x, act)
+                elif isinstance(entry, (PlanConv, PlanMaxPool)):
                     if rows is not None:
                         x, rows = layout.fit(x, rows, entry.stride)
                     if isinstance(entry, PlanConv):
@@ -966,11 +982,17 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
                 elif isinstance(entry, PlanRoute):
                     routes.append(x)
                 elif isinstance(entry, PlanUpsample):
-                    x = upsample2x(x)
-                    if rows is not None:
+                    route = routes.pop().to(x.dtype)
+                    cat = ChannelConcat(x, act, (x.shape[1], route.shape[1]), route.shape[2:],
+                                        folded, rows)
+                    if rows is None:
+                        cat.upsampled(0, x)
+                    else:
                         # the route was laid out at this height by the same rule
-                        x, rows = layout.constrain(x, rows)
-                    x = cat_channels([x, routes.pop().to(x.dtype)])
+                        x, rows = layout.constrain(upsample2x(x), rows)
+                        cat.put(0, x)
+                    cat.put(1, route)
+                    x = cat.result()
                 elif isinstance(entry, PlanSave):
                     named[entry.name] = x
                 elif isinstance(entry, PlanActivation):
@@ -978,9 +1000,20 @@ def _walk(model, x, layout, act, stage, head) -> List[torch.Tensor]:
                 elif isinstance(entry, PlanSPP):
                     x = maxpool_pyramid(x, tuple(reversed(entry.kernels)) + (1,))
                 elif isinstance(entry, PlanLateral):
-                    x = cat_channels([layer(named[entry.route], act), upsample2x(x)])
+                    route = named[entry.route]
+                    cat = ChannelConcat(route, act, (entry.out_ch, x.shape[1]), route.shape[2:],
+                                        folded)
+                    cat.conv(0, layer, route, act)
+                    cat.upsampled(1, x)
+                    x = cat.result()
                 elif isinstance(entry, PlanJoin):
-                    x = cat_channels([x, named[entry.route]])
+                    route = named[entry.route]
+                    if join is None:  # no conv just before it to write the trunk part
+                        join = ChannelConcat(x, act, (x.shape[1], route.shape[1]),
+                                             route.shape[2:], folded)
+                        join.put(0, x)
+                    join.put(1, route)
+                    x, join = join.result(), None
                 elif isinstance(entry, PlanELAN):
                     with span("forward.elan"):
                         x = layer(x, act)

@@ -31,7 +31,7 @@ from typing import ClassVar, Optional, Tuple
 
 import torch.nn as nn
 
-from .blocks import cat_channels, maxpool2d, maxpool_pyramid
+from .blocks import ChannelConcat, FoldedConv, maxpool2d, maxpool_pyramid
 
 # which chain outputs each ELAN form's concat joins, deepest first (1-4;
 # 0 would be b, which always joins after them)
@@ -85,11 +85,20 @@ class ELAN(nn.Module):
         self.fuse = conv(entry.cat_ch, entry.out_ch, 1)
 
     def forward(self, x, act):
-        a = self.a(x, act)
-        outs = [self.b(x, act)]
-        for c in self.chain:
-            outs.append(c(outs[-1], act))
-        return self.fuse(cat_channels([outs[p] for p in self.entry.picks] + [outs[0], a]), act)
+        """The concat ``[picked chain outputs, b, a]`` is written in place
+        where ``blocks.ChannelConcat`` can; ``b`` and the picked chain
+        outputs that the next chain conv reads are kept as tensors too."""
+        e = self.entry
+        slot = {p: i for i, p in enumerate(e.picks)}  # chain output -> part
+        n = len(e.picks)
+        cat = ChannelConcat(x, act, (e.q,) * n + (e.mid, e.mid), x.shape[2:],
+                            isinstance(self.fuse, FoldedConv))
+        cat.conv(n + 1, self.a, x, act)
+        y = cat.conv(n, self.b, x, act, keep=True)
+        for j, c in enumerate(self.chain, 1):
+            keep = j < len(self.chain)
+            y = cat.conv(slot[j], c, y, act, keep=keep) if j in slot else c(y, act)
+        return self.fuse(cat.result(), act)
 
 
 class MPDown(nn.Module):
@@ -98,13 +107,24 @@ class MPDown(nn.Module):
 
     def __init__(self, entry: PlanMP, conv):
         super().__init__()
+        self.width = entry.out_ch
         self.pool = conv(entry.in_ch, entry.out_ch, 1)
         self.reduce = conv(entry.in_ch, entry.out_ch, 1)
         self.down = conv(entry.out_ch, entry.out_ch, 3, 2)
 
     def forward(self, x, act, route=None):
-        parts = [self.down(self.reduce(x, act), act), self.pool(maxpool2d(x, 2, 2), act)]
-        return cat_channels(parts if route is None else parts + [route])
+        """``[down, pool]`` (and ``route``), written in place where
+        ``blocks.ChannelConcat`` can; the route, which later layers read
+        too, is copied in."""
+        c = self.width
+        widths = (c, c) if route is None else (c, c, route.shape[1])
+        size = tuple((n - 1) // 2 + 1 for n in x.shape[2:])  # the stride-2 3x3's
+        cat = ChannelConcat(x, act, widths, size, isinstance(self.down, FoldedConv))
+        cat.conv(0, self.down, self.reduce(x, act), act)
+        cat.conv(1, self.pool, maxpool2d(x, 2, 2), act)
+        if route is not None:
+            cat.put(2, route)
+        return cat.result()
 
 
 class SPPCSPC(nn.Module):
@@ -113,6 +133,7 @@ class SPPCSPC(nn.Module):
     def __init__(self, entry: PlanSPPCSPC, conv):
         super().__init__()
         cin, c = entry.in_ch, entry.out_ch
+        self.width = c
         self.cv1 = conv(cin, c, 1)
         self.cv2 = conv(cin, c, 1)
         self.cv3 = conv(c, c, 3)
@@ -122,7 +143,12 @@ class SPPCSPC(nn.Module):
         self.cv7 = conv(2 * c, c, 1)
 
     def forward(self, x, act):
+        """``cv7`` reads ``[y1, cv2]``, written in place where
+        ``blocks.ChannelConcat`` can."""
+        c = self.width
+        cat = ChannelConcat(x, act, (c, c), x.shape[2:], isinstance(self.cv7, FoldedConv))
         x1 = self.cv4(self.cv3(self.cv1(x, act), act), act)
         pooled = maxpool_pyramid(x1, (1,) + SPP_POOLS)
-        y1 = self.cv6(self.cv5(pooled, act), act)
-        return self.cv7(cat_channels([y1, self.cv2(x, act)]), act)
+        cat.conv(0, self.cv6, self.cv5(pooled, act), act)
+        cat.conv(1, self.cv2, x, act)
+        return self.cv7(cat.result(), act)

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "pairwise_iou_launch": ([_P, _I, _I, _P, _P], _I),
     # y, bias, skip, rows, C, act, stream
     "conv_epilogue_launch": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
+    # y, bias, skip, out, rows, C, pitch, keep, act, stream
+    "conv_epilogue_slice_launch": ([_P] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_P], _I),
     # y, yb, res, q, d, db, bias, s_out, rs, rows, C, act, stream
     "int8_epilogue_launch": ([_P] * 9 + [ctypes.c_longlong, _I, _I, _P], _I),
     # x, w, out, batch, H, W, C, cout, kernel, stride, stream

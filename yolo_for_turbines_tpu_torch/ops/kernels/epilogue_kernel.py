@@ -16,6 +16,11 @@ where the composition it replaces (the conv's bias add, the activation,
 time. ``y`` and ``skip`` are (B, C, H, W) tensors stored channels_last (NHWC
 memory), as the folded model keeps its activations; ``bias`` is (C,).
 
+The result may go into ``out`` instead, a channel slice of a channels_last
+concat buffer (``models/blocks.py::ChannelConcat``), so that the concat
+needs no copy pass; with ``keep`` into ``y`` as well, for a part that a
+later conv reads too. The values are the same bits either way.
+
 ``conv_epilogue`` dispatches on the tensor's device: a CPU tensor takes
 ``conv_epilogue_reference``; a CUDA tensor launches the kernel (bf16 only)
 or raises. ``models/blocks.py::FoldedConv`` sends it what it takes and keeps
@@ -87,15 +92,50 @@ def _check(y, bias, activation, skip, add_first=False) -> None:
                          f"got {skip.dtype} {tuple(skip.shape)} on {skip.device}")
     if not skip.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("conv_epilogue: skip must be stored channels_last (NHWC memory)")
-    nbytes = y.numel() * y.element_size()
-    if abs(skip.data_ptr() - y.data_ptr()) < nbytes:
+    if _overlap(skip, y):
         raise ValueError("conv_epilogue: skip overlaps y, which is written in place")
 
 
+def _extent(t: torch.Tensor):
+    """The bytes ``[first, last)`` that ``t``'s elements span."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.numel() == 0 or b.numel() == 0:
+        return False
+    (a0, a1), (b0, b1) = _extent(a), _extent(b)
+    return a0 < b1 and b0 < a1
+
+
+def _slice_pitch(out: torch.Tensor) -> Optional[int]:
+    """The channels of the channels_last (B, P, H, W) buffer that (B, C, H,
+    W) ``out`` is a channel slice of (``buffer[:, a:a + C]``: strides (H W P,
+    1, W P, P), P >= C), or None when ``out`` is not one."""
+    b, c, h, w = out.shape
+    pitch = out.stride(3)
+    return pitch if pitch >= c and out.stride() == (h * w * pitch, 1, w * pitch, pitch) else None
+
+
+def _check_out(y, skip, out) -> int:
+    if out.shape != y.shape or out.dtype != y.dtype or out.device != y.device:
+        raise ValueError(f"conv_epilogue: out must be {y.dtype} {tuple(y.shape)} on {y.device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+    pitch = _slice_pitch(out)
+    if pitch is None:
+        raise ValueError("conv_epilogue: out must be a channel slice of a channels_last buffer")
+    if _overlap(out, y) or (skip is not None and _overlap(out, skip)):
+        raise ValueError("conv_epilogue: out overlaps y or skip")
+    return pitch
+
+
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identity",
-                  skip: Optional[torch.Tensor] = None, add_first: bool = False) -> torch.Tensor:
+                  skip: Optional[torch.Tensor] = None, add_first: bool = False,
+                  out: Optional[torch.Tensor] = None, keep: bool = False) -> torch.Tensor:
     """Write ``skip + act(y + bias)`` (with ``add_first``: ``act(y + bias +
-    skip)``) into ``y`` and return ``y``.
+    skip)``) into ``y`` and return ``y``; or into ``out`` and return
+    ``out``, with ``keep`` into ``y`` as well (then ``y`` is returned).
 
     Args:
         y: (B, C, H, W) conv output stored channels_last; bf16 on CUDA.
@@ -105,22 +145,37 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, activation: str = "identi
         skip: None, or a tensor like ``y`` (a residual block's input) that
             does not overlap it.
         add_first: the skip joins before the activation (identity or relu).
+        out: None, or a channel slice of a channels_last (B, C', H, W)
+            buffer with ``y``'s shape and dtype (``buffer[:, a:a + C]``),
+            overlapping neither ``y`` nor ``skip``.
+        keep: with ``out``, write ``y`` too.
     """
     global launches
     _check(y, bias, activation, skip, add_first)
+    pitch = None if out is None else _check_out(y, skip, out)
     if not y.is_cuda and y.device.type == "cpu":
-        return y.copy_(conv_epilogue_reference(y, bias, activation, skip, add_first))
+        result = conv_epilogue_reference(y, bias, activation, skip, add_first)
+        if out is None:
+            return y.copy_(result)
+        out.copy_(result)
+        return y.copy_(result) if keep else out
     if y.dtype != torch.bfloat16:
         raise ValueError(f"conv_epilogue: the kernel takes bf16, got {y.dtype}")
     if not y.is_cuda:
         raise ValueError(f"conv_epilogue: unsupported device {y.device}")
     if y.numel() == 0:
-        return y
+        return y if out is None or keep else out
     b, c, h, w = y.shape
-    rc = load_library().conv_epilogue_launch(
-        y.data_ptr(), bias.data_ptr(), None if skip is None else skip.data_ptr(),
-        b * h * w, c, ACT_CODES[activation] | (ADD_FIRST if add_first else 0),
-        stream_handle(y.device))
-    check(rc, "conv_epilogue_launch")
+    act = ACT_CODES[activation] | (ADD_FIRST if add_first else 0)
+    skip_ptr = None if skip is None else skip.data_ptr()
+    if out is None:
+        rc = load_library().conv_epilogue_launch(y.data_ptr(), bias.data_ptr(), skip_ptr,
+                                                 b * h * w, c, act, stream_handle(y.device))
+        check(rc, "conv_epilogue_launch")
+    else:
+        rc = load_library().conv_epilogue_slice_launch(
+            y.data_ptr(), bias.data_ptr(), skip_ptr, out.data_ptr(), b * h * w, c, pitch,
+            int(keep), act, stream_handle(y.device))
+        check(rc, "conv_epilogue_slice_launch")
     launches += 1
-    return y
+    return y if out is None or keep else out

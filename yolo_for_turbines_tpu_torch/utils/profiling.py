@@ -14,16 +14,22 @@ profiler's timeline beside the kernels and copies it launches, and logs an
 entry on the host clock (``time.perf_counter``) in a bounded in-memory log
 that ``spans()`` reads. Nothing is written out on the way.
 
-``concat_bytes`` counts the bytes that the folded and the trainable
-forward's channel concats write (``models/blocks.py::cat_channels``: the
-walk's upsample, lateral, join and SPP concats, every CSP stage's and
-YOLOv7's ELAN, MP and SPPCSPC concats; on the card kernel K8 writes SPP's
-and SPPCSPC's pool pyramids without a concat, ``blocks.maxpool_pyramid``), from
-the process's start, like the kernels' ``launches`` counters: one integer
-add per concat, with or without a profiler. ``deform_samples`` counts
-likewise the bilinear samples that RT-DETR's deformable attention takes
-(``models/rtdetr.py::MSDeformableAttention``: B x queries x heads x
-levels x points per decoder layer).
+``concat_bytes`` counts the bytes that copy passes write into the folded and
+the trainable forward's channel concats: ``torch.cat``
+(``models/blocks.py::cat_channels``: the walk's upsample, lateral, join and
+SPP concats, every CSP stage's, YOLOv7's ELAN, MP and SPPCSPC concats and
+RT-DETR's CCFM concats wherever they are not written in place), and on the
+card the copy of each part of an in-place concat that no K5 produced (an
+upsampled half, a saved route: ``blocks.ChannelConcat``).
+``concat_in_place_bytes`` counts the bytes K5 stored straight into concat
+slices instead (``blocks.FoldedConv`` with ``out=``); their sum is every
+concat's bytes. K8 writes SPP's and SPPCSPC's pool pyramids without a
+concat on the card (``blocks.maxpool_pyramid``), counted in neither. Both
+count from the process's start, like the kernels' ``launches`` counters:
+one integer add per concat or part, with or without a profiler.
+``deform_samples`` counts likewise the bilinear samples that RT-DETR's
+deformable attention takes (``models/rtdetr.py::MSDeformableAttention``: B
+x queries x heads x levels x points per decoder layer).
 
 Besides the spans the callers name, RT-DETR's forward opens
 ``detr.backbone``, ``detr.encoder`` and ``detr.decoder`` once each and
@@ -53,6 +59,7 @@ _ids = itertools.count(1)
 _local = threading.local()
 _OFF = contextlib.nullcontext()
 concat_bytes = 0
+concat_in_place_bytes = 0
 deform_samples = 0
 
 
