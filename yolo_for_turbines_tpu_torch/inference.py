@@ -52,7 +52,9 @@ Replicas are made identical when the predictor is built (rank 0's weights
 broadcast, ``sync_replicas``), so every rank of the mesh builds it.
 
 Under a running ``torch.profiler`` (and only then: ``utils/profiling.py``)
-``predict_image`` logs the spans ``predict_image`` > ``.letterbox``,
+``predict_image`` logs the spans ``predict_image`` > ``.letterbox`` (>
+``.resize``, PIL's resize of the longest side, ``.pad``, the centred pad,
+and ``.scale``, the float32 conversion and division by 255),
 ``predict_batch``, ``.fetch`` (the boxes' copy to the host, which waits for
 the device) and ``.unletterbox``; ``predict_batch`` logs ``predict_batch`` >
 ``.input`` (the copy of the input and the anchors to the device),
@@ -69,7 +71,7 @@ import torch
 from . import config as cfg
 from . import native
 from .config import ModelConfig
-from .data.augment import letterbox, unletterbox_boxes
+from .data.augment import letterbox, pad_center, resize_longest, unletterbox_boxes
 from .models import rtdetr
 from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
@@ -325,8 +327,16 @@ class Predictor:
         with span("predict_image"):
             h0, w0 = np_image.shape[:2]
             with span("predict_image.letterbox"):
-                img, _ = letterbox(np_image, None, self.image_size)
-                x = (img.astype(np.float32) / 255.0)[None]
+                # data/augment.py::letterbox step by step, so that each step
+                # has its span; it must stay equal to that function, which
+                # tests/test_torch_spans.py::
+                # test_predict_image_gives_the_model_the_letterbox_pixels pins
+                with span("predict_image.resize"):
+                    img = resize_longest(np_image, self.image_size)
+                with span("predict_image.pad"):
+                    img, _, _ = pad_center(img, self.image_size, self.image_size)
+                with span("predict_image.scale"):
+                    x = (img.astype(np.float32) / 255.0)[None]
             kept, mask = self.predict_batch(x)
             with span("predict_image.fetch"):
                 boxes = nms_to_list(kept[0], mask[0])

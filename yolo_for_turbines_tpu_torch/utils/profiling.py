@@ -11,8 +11,14 @@ check unless a ``torch.profiler`` is running: a running profiler (an
 operator's ``trace_scope``, or a benchmark's) is the only switch. Under
 one, a span opens a ``record_function`` range, which lands on the
 profiler's timeline beside the kernels and copies it launches, and logs an
-entry on the host clock (``time.perf_counter``) in a bounded in-memory log
-that ``spans()`` reads. Nothing is written out on the way.
+entry in a bounded in-memory log that ``spans()`` reads, stamped twice: on
+the host clock (``time.perf_counter``, ``t0`` / ``t1``) and on the
+profiler's own clock (``u0`` / ``u1``: the Unix clock in microseconds that
+the profiler stamps its events with before it subtracts the trace's base;
+``time.time_ns``, which the profiler's converted clock agrees with to well
+under 5 us). With the one constant base of a trace, fitted where the same
+spans are both ranges and entries, a logged span lands on that trace's
+device timeline. Nothing is written out on the way.
 
 ``concat_bytes`` counts the bytes that copy passes write into the folded and
 the trainable forward's channel concats: ``torch.cat``
@@ -80,12 +86,13 @@ def trace_scope(log_dir):
 
 class Span:
     """One logged span: ``name``, ``t0`` and ``t1`` in seconds of
-    ``time.perf_counter()`` (``t1`` is None while it is open), its ``id``,
-    its ``parent``'s id (None at a root) and ``request``, the id of the
-    outermost span open on its thread when it opened (its own at a root),
-    which every span of one request or step shares."""
+    ``time.perf_counter()`` (``t1`` is None while it is open), ``u0`` and
+    ``u1`` in microseconds of the profiler's Unix clock (taken next to the
+    range's own stamps), its ``id`` and its ``parent``'s id (None at a
+    root: the spans of one request or step nest under one root by
+    ``parent``)."""
 
-    __slots__ = ("name", "t0", "t1", "id", "parent", "request", "_range")
+    __slots__ = ("name", "t0", "t1", "u0", "u1", "id", "parent", "_range")
 
     def __init__(self, name: str):
         self.name = name
@@ -97,17 +104,18 @@ class Span:
         self.id = next(_ids)
         outer = stack[-1] if stack else None
         self.parent = outer.id if outer is not None else None
-        self.request = outer.request if outer is not None else self.id
-        self.t1 = None
+        self.t1 = self.u1 = None
         stack.append(self)
         _log.append(self)
         self._range = torch.profiler.record_function(self.name)
         self.t0 = time.perf_counter()
+        self.u0 = time.time_ns() / 1000
         self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
         self._range.__exit__(*exc)
+        self.u1 = time.time_ns() / 1000
         self.t1 = time.perf_counter()
         self._range = None
         _local.stack.pop()
