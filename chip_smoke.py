@@ -88,6 +88,18 @@ Phases, one JSON line each:
           for bit, and K5's share of the concat bytes at least 0.9; alone,
           with the env and build lines:
           python3 -c "import chip_smoke; chip_smoke.k8_alone()";
+  k10     the single-image letterbox on the card (K10) bit for bit against
+          its plain version (Pillow's integer passes) at the stream cell's
+          three frame sizes and odd geometries (12 MP, portrait, a side of
+          3, upsamples, an unchanged frame); per stream size the kernel
+          alone (CUDA events), the frame's upload and K10 through a
+          pageable .to (the predictor's way) and a pinned staging buffer, and
+          the host letterbox it replaced (PIL, pad, / 255, the float
+          canvas's upload), each to a synchronise; a 2-class mish Darknet-53
+          predictor's requests: one K10 launch each, each size's tables made
+          once, and each size's request with K10 against the same request
+          on the host letterbox; alone, with the env and build lines:
+          python3 -c "import chip_smoke; chip_smoke.k10_alone()";
   rtdetr  RT-DETR-R50's kernel paths: K5's ReLU and its add-first order
           (a bottleneck's shortcut joins before its ReLU) bit for bit
           against the plain version at every width phase k5 checks and at
@@ -1660,6 +1672,130 @@ def phase_rtdetr(dev):
         require(value is not None and value <= limit,
                 f"RT-DETR's {name} at B = 8 is {value}, above the cell's limit {limit}")
     return per_call[0]
+
+
+K10_SIZES = ((640, 480), (1280, 960), (1920, 1080))  # (w, h): the stream cell's frames
+K10_GEOMETRIES = K10_SIZES + ((4000, 3000), (731, 1289), (417, 3), (3, 417), (100, 80), (1, 1),
+                              (416, 312), (5000, 7), (33, 2000))
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` over ``reps`` calls, each ended by
+    a synchronise (after two untimed calls)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_k10(dev):
+    """K10, the single-image letterbox on the card: bit for bit against the
+    plain version (Pillow's integer passes, held to Pillow itself on the
+    CPU) at the stream cell's sizes and odd geometries; then per stream
+    size the kernel alone, the frame's upload and K10 (a pageable ``.to``,
+    the predictor's way, and pinned staging), and the host letterbox it
+    replaced (PIL, pad, / 255, the float canvas's upload); and a Darknet-53
+    predictor's requests with K10 against the same requests on the host
+    letterbox, one K10 launch a request."""
+    from yolo_for_turbines_tpu_torch.config import ModelConfig
+    from yolo_for_turbines_tpu_torch.data.augment import pad_center, resize_longest
+    from yolo_for_turbines_tpu_torch.inference import Predictor
+    from yolo_for_turbines_tpu_torch.models.convert import folded_from_numpy
+    from yolo_for_turbines_tpu_torch.models.yolov3 import build_plan, init_plan
+    from yolo_for_turbines_tpu_torch.ops.kernels import letterbox_kernel as lk
+
+    out = {"phase": "k10", "gpu": gpu_line()}
+    rng = np.random.default_rng(SEED)
+    tables = lk.LetterboxTables(dev)
+    for w, h in K10_GEOMETRIES:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        got = lk.letterbox(torch.from_numpy(img).to(dev), 416, tables)
+        want = lk.letterbox_reference(img, 416)
+        require(np.array_equal(got[0].cpu().numpy().view(np.uint32), want.view(np.uint32)),
+                f"K10 differs from the plain letterbox at {w}x{h}")
+    out["bit_for_bit"] = len(K10_GEOMETRIES)
+    staging = torch.empty(1920 * 1080 * 3, dtype=torch.uint8, pin_memory=True)
+
+    def upload(img):
+        """The other choice: the frame copied into a pinned staging buffer,
+        then to the device without waiting (for timing only: the host loop
+        of ``host_us`` may overwrite the buffer under a copy)."""
+        host = staging[: img.size]
+        np.copyto(host.numpy().reshape(img.shape), img)
+        return host.to(dev, non_blocking=True).view(img.shape)
+
+    for w, h in K10_SIZES:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        on_dev = torch.from_numpy(img).to(dev)
+        p = tables.get(h, w, 416)
+
+        def host():
+            x = resize_longest(img, 416)
+            x, _, _ = pad_center(x, 416, 416)
+            return torch.from_numpy((x.astype(np.float32) / 255.0)[None]).to(dev)
+
+        row = {"kernel_ms": cuda_ms(lambda: lk.letterbox(on_dev, 416, tables), 200),
+               "kernel_host_us": host_us(lambda: lk.letterbox(on_dev, 416, tables), 200)[0],
+               "band_rows": p.band_rows, "tile_cols": p.tile_cols, "smem": p.smem}
+        turns = {"host": [], "pinned": [], "pageable": []}
+        for name in ("host", "pinned", "pageable", "pageable", "pinned", "host"):
+            fn = {"host": host,
+                  "pinned": lambda: lk.letterbox(upload(img), 416, tables),
+                  "pageable": lambda: lk.letterbox(torch.from_numpy(img).to(dev), 416,
+                                                   tables)}[name]
+            turns[name].append(median_ms(fn, 30))
+        for name, ms in turns.items():
+            row[f"{name}_ms"] = sum(ms) / len(ms)
+        # the upload alone, to the copy's end, and the host's time until it
+        # returns
+        row["pinned_upload_ms"] = median_ms(lambda: upload(img), 30)
+        row["pageable_upload_ms"] = median_ms(lambda: torch.from_numpy(img).to(dev), 30)
+        row["pinned_upload_host_us"] = host_us(lambda: upload(img), 30)[0]
+        row["pageable_upload_host_us"] = host_us(lambda: torch.from_numpy(img).to(dev), 30)[0]
+        row["upload_mb"] = img.nbytes / 1e6
+        out[f"{w}x{h}"] = row
+    # the stream cell's model: 2 classes under mish
+    model_cfg = ModelConfig(num_classes=2, activation="mish")
+    plan = build_plan(model_cfg)
+    tree = init_plan(plan, torch.Generator().manual_seed(SEED))
+    pred = Predictor(folded_from_numpy(plan, tree, model_cfg), device=dev, max_boxes=K)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for w, h in K10_SIZES]
+    before = lk.launches
+    for img in frames:
+        pred.predict_image(img)
+    require(lk.launches == before + len(frames),
+            f"{lk.launches - before} K10 launches for {len(frames)} requests")
+    require(pred._tables.builds == len(frames), "a frame size's tables were made twice")
+    # each size's request through K10 and through the host letterbox (no
+    # tables: the CPU's path), in turns
+    ways = {"k10": pred._tables, "pil": None}
+    for (w, h), img in zip(K10_SIZES, frames):
+        row = out[f"{w}x{h}"]
+        times = {name: [] for name in ways}
+        for name in ("k10", "pil", "pil", "k10"):
+            pred._tables = ways[name]
+            times[name].append(median_ms(lambda: pred.predict_image(img), 20))
+        for name, ms in times.items():
+            row[f"request_{name}_ms"] = sum(ms) / len(ms)
+    emit(out)
+    return out
+
+
+def k10_alone() -> None:
+    """The env and build lines, then phase k10, on the first card."""
+    from yolo_for_turbines_tpu_torch.ops import kernels
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gpu": gpu_line()})
+    kernels.load_library()
+    emit({"phase": "build", "nvcc_seconds": kernels.build_seconds})
+    phase_k10(torch.device("cuda", 0))
 
 
 def rtdetr_alone() -> None:
@@ -3954,6 +4090,7 @@ def main() -> int:
     launches, iou_main, bf16_rates, (x1, cpu_heads) = phase_main(dev)
     k5_yolov7, k8_yolov7 = phase_yolov7(dev)
     rtdetr = phase_rtdetr(dev)
+    phase_k10(dev)
     launches_f32 = phase_main_f32(dev, x1, cpu_heads)
     launches_int8, iou_int8 = phase_main_int8(dev, bf16_rates)
     launches_eval, launches_fold = phase_eval(dev)

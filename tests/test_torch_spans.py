@@ -40,10 +40,10 @@ def _cpu_profile():
     return profile(activities=[ProfilerActivity.CPU])
 
 
-def _predictor():
+def _predictor(device="cpu"):
     cfg = ModelConfig(num_classes=2, layer_config=MINI_LAYERS)
     tree = init_plan(build_plan(cfg), torch.Generator().manual_seed(0))
-    return Predictor.from_folded(cfg, tree, device="cpu", image_size=64, max_boxes=8)
+    return Predictor.from_folded(cfg, tree, device=device, image_size=64, max_boxes=8)
 
 
 def _frame(h=48, w=80):
@@ -253,12 +253,10 @@ def test_predict_image_logs_its_spans_in_order():
     assert isinstance(boxes, list)
 
 
-@pytest.mark.parametrize("hw", [(48, 80), (80, 48), (64, 64), (30, 200)])
-def test_predict_image_gives_the_model_the_letterbox_pixels(hw):
-    """The letterbox in three spans (resize, pad, scale) hands the model the
-    same floats as ``letterbox`` and one division, bit for bit, with or
-    without a profiler."""
-    pred = _predictor()
+LETTERBOX_HW = [(48, 80), (80, 48), (64, 64), (30, 200)]
+
+
+def _model_input_is_the_letterbox(pred, hw):
     frame = _frame(*hw)
     seen = []
     heads = pred._heads
@@ -275,7 +273,48 @@ def test_predict_image_gives_the_model_the_letterbox_pixels(hw):
     want = torch.from_numpy((img.astype(np.float32) / 255.0)[None])
     assert len(seen) == 2
     for x in seen:
-        assert x.dtype == torch.float32 and torch.equal(x, want)
+        assert x.dtype == torch.float32 and x.device == pred.device
+        assert torch.equal(x.cpu(), want)
+
+
+@pytest.mark.parametrize("hw", LETTERBOX_HW)
+def test_predict_image_gives_the_model_the_letterbox_pixels(hw):
+    """The letterbox in three spans (resize, pad, scale) hands the model the
+    same floats as ``letterbox`` and one division, bit for bit, with or
+    without a profiler."""
+    _model_input_is_the_letterbox(_predictor(), hw)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K10 runs only there")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", LETTERBOX_HW)
+def test_predict_image_gives_the_model_the_letterbox_pixels_on_the_card(card, hw):
+    """The same on a CUDA predictor, whose letterbox is K10 on the device."""
+    _model_input_is_the_letterbox(_predictor(card), hw)
+
+
+@pytest.mark.cuda
+def test_predict_image_logs_the_cards_letterbox_spans(card):
+    """On the card ``.letterbox`` holds ``.upload`` and ``.resize`` (K10's
+    launch), and no ``.pad`` or ``.scale``."""
+    pred = _predictor(card)
+    pred.predict_image(_frame())
+    t0 = time.perf_counter()
+    with _cpu_profile():
+        pred.predict_image(_frame())
+    got = spans(since=t0)
+    card_spans = PREDICT_IMAGE[:2] + ["predict_image.upload", "predict_image.resize"] \
+        + PREDICT_IMAGE[5:]
+    assert [s.name for s in got] == card_spans
+    by_id = {s.id: s for s in got}
+    assert by_id[got[2].parent].name == by_id[got[3].parent].name == "predict_image.letterbox"
+    assert got[1].t0 <= got[2].t0 <= got[2].t1 <= got[3].t0 <= got[3].t1 <= got[1].t1
 
 
 def test_predict_batch_alone_is_a_root():

@@ -51,14 +51,26 @@ same global batch, as the JAX ``Predictor(mesh=)``:
 Replicas are made identical when the predictor is built (rank 0's weights
 broadcast, ``sync_replicas``), so every rank of the mesh builds it.
 
+On the card ``predict_image`` letterboxes on the device: the host uint8
+frame is uploaded as it is (a pageable copy, which the card ran faster than
+a copy staged through pinned memory: ``PERF.md``) and K10
+(``ops/kernels/letterbox_kernel.py`` -> ``csrc/letterbox.cu``) writes the
+model's float32 input, PIL's bilinear resize, the pad and the division by
+255 in one launch, bit for bit PIL's pixels; each frame size's tables are
+made once (``LetterboxTables``). It takes every HWC uint8 frame with 3
+channels and raises ``ValueError`` on any other. On the CPU the host
+letterbox (``data/augment.py``, PIL) stays.
+
 Under a running ``torch.profiler`` (and only then: ``utils/profiling.py``)
-``predict_image`` logs the spans ``predict_image`` > ``.letterbox`` (>
-``.resize``, PIL's resize of the longest side, ``.pad``, the centred pad,
-and ``.scale``, the float32 conversion and division by 255),
-``predict_batch``, ``.fetch`` (the boxes' copy to the host, which waits for
-the device) and ``.unletterbox``; ``predict_batch`` logs ``predict_batch`` >
-``.input`` (the copy of the input and the anchors to the device),
-``.forward`` and ``.postprocess`` (decode, NMS and the mesh's gather).
+``predict_image`` logs the spans ``predict_image`` > ``.letterbox`` (on the
+CPU > ``.resize``, PIL's resize of the longest side, ``.pad``, the centred
+pad, and ``.scale``, the float32 conversion and division by 255; on the
+card > ``.upload``, the frame's copy to the device, and ``.resize``, K10's
+launch), ``predict_batch``, ``.fetch`` (the boxes' copy to the host, which
+waits for the device) and ``.unletterbox``; ``predict_batch`` logs
+``predict_batch`` > ``.input`` (the copy of the input and the anchors to
+the device), ``.forward`` and ``.postprocess`` (decode, NMS and the mesh's
+gather).
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from .models.convert import folded_from_numpy, folded_to_numpy
 from .models.quantize import apply_inference_int8, pack_int8, quantize_folded
 from .models.yolov3 import FoldedYOLOv3, PlanHead, YOLOv3, build_plan, refuse_walk_only
 from .ops.decode import decode_raw_all
+from .ops.kernels import letterbox_kernel
 from .ops.nms import batched_nms, nms_to_list
 from .parallel import comm
 from .parallel.mesh import batch_group, batch_sharding, tree_map
@@ -164,6 +177,11 @@ class Predictor:
         self.conf_threshold = conf_threshold
         self.nms_iou_threshold = nms_iou_threshold
         self.max_boxes = max_boxes
+        # K10's tables of predict_image's frame sizes on the card; None on
+        # the CPU, whose letterbox is the host's
+        self._tables = None
+        if self.device.type == "cuda":
+            self._tables = letterbox_kernel.LetterboxTables(self.device)
         if mesh is not None:
             self.sync_replicas()
 
@@ -323,20 +341,30 @@ class Predictor:
 
     def predict_image(self, np_image: np.ndarray) -> List[List[float]]:
         """One HWC uint8 image -> NMS boxes in the original image's
-        normalized frame [cx, cy, w, h, score, class]."""
+        normalized frame [cx, cy, w, h, score, class]. On the card the
+        image must have 3 channels (K10 letterboxes it there)."""
+        if self._tables is not None:
+            letterbox_kernel.check_frame(np_image)
         with span("predict_image"):
             h0, w0 = np_image.shape[:2]
             with span("predict_image.letterbox"):
-                # data/augment.py::letterbox step by step, so that each step
-                # has its span; it must stay equal to that function, which
-                # tests/test_torch_spans.py::
-                # test_predict_image_gives_the_model_the_letterbox_pixels pins
-                with span("predict_image.resize"):
-                    img = resize_longest(np_image, self.image_size)
-                with span("predict_image.pad"):
-                    img, _, _ = pad_center(img, self.image_size, self.image_size)
-                with span("predict_image.scale"):
-                    x = (img.astype(np.float32) / 255.0)[None]
+                if self._tables is not None:
+                    with span("predict_image.upload"):
+                        frame = torch.from_numpy(np.ascontiguousarray(np_image)).to(self.device)
+                    with span("predict_image.resize"):
+                        x = letterbox_kernel.letterbox(frame, self.image_size, self._tables)
+                else:
+                    # data/augment.py::letterbox step by step, so that each
+                    # step has its span; it must stay equal to that function,
+                    # which tests/test_torch_spans.py::
+                    # test_predict_image_gives_the_model_the_letterbox_pixels
+                    # pins
+                    with span("predict_image.resize"):
+                        img = resize_longest(np_image, self.image_size)
+                    with span("predict_image.pad"):
+                        img, _, _ = pad_center(img, self.image_size, self.image_size)
+                    with span("predict_image.scale"):
+                        x = (img.astype(np.float32) / 255.0)[None]
             kept, mask = self.predict_batch(x)
             with span("predict_image.fetch"):
                 boxes = nms_to_list(kept[0], mask[0])

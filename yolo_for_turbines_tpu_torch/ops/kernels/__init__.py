@@ -70,6 +70,9 @@ _SIGNATURES = {
     # value, loc, weights, out, shapes, levels, batch, tokens, queries, heads,
     # dim, points, stream
     "deform_attention_launch": ([_P] * 4 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P], _I),
+    # src, w0, table, hks, vks, out, size, nh, nw, top, left, band_rows,
+    # tile_cols, smem, stream
+    "letterbox_launch": ([_P, _I, _P, _I, _I, _P] + [_I] * 8 + [_P], _I),
 }
 
 

@@ -1,7 +1,8 @@
 """Inference demo CLI (counterpart of ``yolo_for_turbines_tpu/tools/demo.py``;
 reference: code/demo.py): load a model, letterbox an image, run the
-forward -> decode -> NMS pipeline (one ``predict_image``: K1 once on the
-card), and draw class-labelled boxes on the original image.
+forward -> decode -> NMS pipeline (one ``predict_image``: on the card the
+letterbox is K10 on the device and K1 runs once), and draw class-labelled
+boxes on the original image.
 
     python -m yolo_for_turbines_tpu_torch.tools.demo --weights weights/yolov3.weights \\
         --image examples/Tram.jpg --out out.png
